@@ -18,9 +18,10 @@ Phases (any failure raises and the script exits non-zero):
               decompress_tiled and decompress_region; launch counters are
               zeroed just before and read just after;
 4. kernels -- each kernel again at the main path's shapes: bit-exact
-              against its plain version, then timed with CUDA events beside
-              the plain version, a library call where one exists, and the
-              bound (least time for the bytes it must move at 3.35 TB/s);
+              against its plain version, then timed (see ``kernel_ms`` and
+              ``events_ms``) beside the plain version, a library call where
+              one exists, and the bound (least time for the bytes it must
+              move at 3.35 TB/s);
 5. cpu     -- the 128^3 corner compressed on the card and on the CPU gives
               identical GWTC bytes;
 6. golden  -- tests/golden/gwtc_v1.bin decodes on the card bit for bit.
@@ -32,7 +33,6 @@ name and power limit as nvidia-smi reports them, and last
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -45,15 +45,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 / int32 rate
 SHAPE, TILE, REL_EB, BACKEND = (512, 512, 512), (64, 64, 64), 1e-3, "huffman+zlib"
 ROI = ((100, 228), (37, 101), (300, 364))
-KERNELS = {  # counter name -> (source, TPU kernel it replaces)
+KERNELS = {  # counter name -> (source, TPU kernel it replaces, __global__ name prefix)
     "lorenzo_quant_tiles": ("src/repro_torch/csrc/lorenzo_quant.cu",
-                            "src/repro/kernels/lorenzo_quant.py:87"),
+                            "src/repro/kernels/lorenzo_quant.py:87",
+                            "lorenzo_quant_tiles_kernel"),
     "symbol_hist": ("src/repro_torch/csrc/symbol_hist.cu",
-                    "src/repro/kernels/group_hist.py:53"),
+                    "src/repro/kernels/group_hist.py:53", "symbol_hist_"),
     "huffman_encode": ("src/repro_torch/csrc/huffman_encode.cu",
-                       "src/repro/kernels/huffman_encode.py:72"),
+                       "src/repro/kernels/huffman_encode.py:72",
+                       "huffman_encode_pack_kernel"),
     "huffman_decode": ("src/repro_torch/csrc/huffman_decode.cu",
-                       "src/repro/kernels/huffman_decode.py:106"),
+                       "src/repro/kernels/huffman_decode.py:106",
+                       "huffman_decode_probe_kernel"),
 }
 
 
@@ -77,21 +80,52 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+def events_ms(fn, reps: int) -> float:
+    """Time of one call: CUDA events around ``reps`` back-to-back calls, over
+    ``reps``.  The calls are queued behind a device-side sleep longer than
+    their enqueue, so the host's launch cost is hidden unless a call
+    synchronizes inside (then its host time counts, as its caller pays it)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    times = []
+    t0 = time.perf_counter()
     for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    enqueue_s = time.perf_counter() - t0
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(1.5 * enqueue_s * 2e9))  # cycles; the clock is <= 2 GHz
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def kernel_ms(fn, kernel: str, reps: int) -> tuple[float, str]:
+    """Device time of the kernel alone: its own intervals in a torch.profiler
+    trace of ``reps`` calls, over its launch count, so the wrapper's host
+    work and output allocation are left out.  Where the profiler records no
+    device time it falls back to :func:`events_ms`.  Returns (ms, method)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key
+            and e.self_device_time_total > 0]
+    count = sum(e.count for e in hits)
+    if count == 0:
+        return events_ms(fn, reps), "events"
+    check(count == reps, f"profiler saw {count} launches of {kernel}, not {reps}")
+    return sum(e.self_device_time_total for e in hits) / count / 1e3, "profiler"
 
 
 class Parity:
@@ -192,10 +226,9 @@ def main_path(x_np):
 
     from repro_torch.kernels import ops
     from repro_torch.sz import TiledCompressed, compress_tiled, decompress_region
-    from repro_torch.sz import decompress_tiled, entropy
+    from repro_torch.sz import decompress_tiled
 
     ops.reset_launches()
-    entropy.reset_host_route()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     art, recon = compress_tiled(x_np, TILE, rel_eb=REL_EB, backend=BACKEND)
@@ -210,7 +243,6 @@ def main_path(x_np):
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     launches = dict(ops.LAUNCHES)
-    host_route = dict(entropy.HOST_ROUTE)
 
     x = torch.from_numpy(x_np).to(out.device)
     check(tuple(out.shape) == SHAPE and out.dtype == torch.float32, "decode shape/dtype")
@@ -221,13 +253,12 @@ def main_path(x_np):
     crop = out[tuple(slice(a, b) for a, b in ROI)]
     check(torch.equal(region, crop), "region decode differs from the full decode's crop")
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
-    check(all(v == 0 for v in host_route.values()), f"lanes left the card: {host_route}")
     emit({"phase": "main", "shape": list(SHAPE), "tile": list(TILE), "rel_eb": REL_EB,
           "backend": BACKEND, "eb_abs": art.eb_abs, "compress_s": t1 - t0,
           "decompress_s": t2 - t1, "region_ms": (t3 - t2) * 1e3, "roi": [list(r) for r in ROI],
           "region_tiles": int(np.prod([-(-b // t) - a // t for (a, b), t in zip(ROI, TILE)])),
           "ratio": x_np.nbytes / len(blob), "container_bytes": len(blob),
-          "max_abs_err": err, "launches": launches, "host_route": host_route})
+          "max_abs_err": err, "launches": launches})
     return art, blob, launches
 
 
@@ -248,10 +279,12 @@ def kernel_rows(par: Parity, x_np, art, launches) -> list[dict]:
     lane = int(np.argsort(sizes)[len(sizes) // 2])  # the median-size lane
     rows = {}
 
-    def row(name, kern, plain, nbytes, nops, library=None, reps=20):
+    def row(name, kern, plain, nbytes, nops, library=None, reps=200, plain_reps=20):
+        ms, ms_by = kernel_ms(kern, KERNELS[name][2], reps)
         rows[name] = {
-            "ms": cuda_ms(kern, reps), "plain_ms": cuda_ms(plain, max(3, reps // 4)),
-            "library_ms": None if library is None else cuda_ms(library, reps),
+            "ms": ms, "ms_by": ms_by, "call_ms": events_ms(kern, reps),
+            "plain_ms": events_ms(plain, plain_reps),
+            "library_ms": None if library is None else events_ms(library, reps),
             "bound_ms": max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= nops / FP32_OPS_PER_S
             else "operations",
@@ -263,7 +296,7 @@ def kernel_rows(par: Parity, x_np, art, launches) -> list[dict]:
     n = tiles.numel()
     # bytes: read x, write codes; operations: 1 division + 7 adds per element
     row("lorenzo_quant_tiles", lambda: lorenzo_quant.lorenzo_quant_tiles(tiles, eb),
-        lambda: ref.lorenzo_quant_tiles_ref(tiles, eb), 8 * n, 8 * n)
+        lambda: ref.lorenzo_quant_tiles_ref(tiles, eb), 8 * n, 8 * n, reps=20, plain_reps=5)
     rows["lorenzo_quant_tiles"]["shape_note"] = f"x {list(tiles.shape)} f32"
 
     flat = codes[lane].reshape(-1)
@@ -293,21 +326,23 @@ def kernel_rows(par: Parity, x_np, art, launches) -> list[dict]:
     args, kw = dcodec._decode_inputs(stream, n_sym, dcs, np.cumsum(cb) - cb, dev)
     ids = huffman_decode.huffman_decode_probe(*args, **kw)
     par.compare("huffman_decode", "main_lane", ids, ref.huffman_decode_ref(*args, **kw))
-    # bytes: the stream words, offsets/counts and tables read, the ids written
-    nbytes = sum(4 * a.numel() for a in args) + 4 * ids.numel()
+    # bytes: the stream's words, the chunk offsets and counts read, the ids
+    # written (the codec's tables are left out: they derive from its header)
+    n_words = -(-int(cb.sum()) // 32)
+    nbytes = 4 * (n_words + args[1].numel() + args[2].numel() + ids.numel())
     row("huffman_decode", lambda: huffman_decode.huffman_decode_probe(*args, **kw),
-        lambda: ref.huffman_decode_ref(*args, **kw), nbytes, 16 * n_sym, reps=20)
+        lambda: ref.huffman_decode_ref(*args, **kw), nbytes, 16 * n_sym, plain_reps=5)
     rows["huffman_decode"]["shape_note"] = (f"{args[0].numel()} stream words, "
                                             f"ids [{ids.shape[0]}, {ids.shape[1]}]")
 
     out = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, _) in KERNELS.items():
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": launches[name], "max_abs_err": par.err[name],
                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                    "shape": r["shape_note"]})
+                    "ms_by": r["ms_by"], "call_ms": r["call_ms"], "shape": r["shape_note"]})
     return out
 
 

@@ -7,12 +7,12 @@ On the main-path cell of ``chip_smoke.py`` (nyx_like_field((512,)*3,
 "temperature", seed=0), tile 64^3, rel_eb 1e-3, huffman+zlib) it prints JSON
 lines with:
 
-* ``workers``: compress / decompress seconds with 1 and 8 lane threads, run
-  in the order 1, 8, 8, 1 so drift shows;
+* ``repeats``: compress / decompress seconds of four runs in a row, so the
+  spread of the host clock shows;
 * ``host``: the host functions with the most own time (cProfile) in one
-  serial compress and one serial decompress;
+  compress and one decompress;
 * ``device``: CUDA time per kernel and the device's busy share of the wall
-  time (torch.profiler) over one serial compress and decompress.
+  time (torch.profiler) over one compress and one decompress.
 """
 from __future__ import annotations
 
@@ -48,18 +48,17 @@ def main() -> int:
     from repro_torch.sz import compress_tiled, decompress_tiled
 
     x = nyx_like_field(SHAPE, "temperature", seed=0)
-    compress = lambda w: compress_tiled(x, TILE, rel_eb=REL_EB, workers=w)[0]  # noqa: E731
-    art = compress(1)  # warm-up: library load, allocator
+    compress = lambda: compress_tiled(x, TILE, rel_eb=REL_EB)[0]  # noqa: E731
+    art = compress()  # warm-up: library load, allocator
 
     runs = []
-    for w in (1, 8, 8, 1):
-        _, c_s = timed(lambda: compress(w))
-        _, d_s = timed(lambda: decompress_tiled(art, workers=w))
-        runs.append({"workers": w, "compress_s": c_s, "decompress_s": d_s})
-    print(json.dumps({"workers": runs}), flush=True)
+    for _ in range(4):
+        _, c_s = timed(compress)
+        _, d_s = timed(lambda: decompress_tiled(art))
+        runs.append({"compress_s": c_s, "decompress_s": d_s})
+    print(json.dumps({"repeats": runs}), flush=True)
 
-    for name, fn in (("compress", lambda: compress(1)),
-                     ("decompress", lambda: decompress_tiled(art, workers=1))):
+    for name, fn in (("compress", compress), ("decompress", lambda: decompress_tiled(art))):
         prof = cProfile.Profile()
         prof.enable()
         _, wall = timed(fn)

@@ -11,11 +11,12 @@ Split between host and device:
   (``_splice_chunks``), zlib and the blob framing.
 
 Blobs are byte-identical to the reference's for the ``z2``/``z4`` (zlib)
-and ``hc``/``hZ`` (chunked Huffman) tags.  A codec whose tables the kernels
-cannot take (a code longer than 32 bits, or a chunk larger than the encode
-kernel's shared memory) goes to the host only through :data:`HOST_ROUTE`,
-which counts every such lane.  The legacy ``hf``/``hz`` tags are not read
-yet.
+and ``hc``/``hZ`` (chunked Huffman) tags.  The per-symbol work never leaves
+the symbols' device: what the kernels cannot take is refused with a
+``ValueError`` on every device -- a table with a code longer than 32 bits
+(no encoder writes one), a chunk larger than the encode kernel's shared
+memory (:data:`MAX_CHUNK`) or a stream past int32 bit positions.  The
+legacy ``hf``/``hz`` tags are not read yet.
 """
 from __future__ import annotations
 
@@ -39,23 +40,7 @@ DEFAULT_CHUNK = 256  # symbols per independently decodable chunk
 _LUT_BITS = 12  # primary decode-table width cap (2**k entries)
 _FMT_CODE_LEN = 32  # FROZEN in the hc/hZ blob format (chunk-table width rule)
 _MAX_CODE_LEN = _FMT_CODE_LEN  # encoder policy; must never exceed _FMT_CODE_LEN
-_DENSE_SPAN = 1 << 22  # wider alphabets are counted by np.unique on the host
-
-# lanes whose entropy work left the device: "fit" (alphabet span above
-# _DENSE_SPAN), "encode" / "decode" (codec or chunk the kernels cannot take)
-HOST_ROUTE = {"fit": 0, "encode": 0, "decode": 0}
-_ROUTE_LOCK = threading.Lock()
-
-
-def _host_route(kind: str) -> None:
-    with _ROUTE_LOCK:
-        HOST_ROUTE[kind] += 1
-
-
-def reset_host_route() -> None:
-    with _ROUTE_LOCK:
-        for k in HOST_ROUTE:
-            HOST_ROUTE[k] = 0
+_DENSE_SPAN = 1 << 22  # wider alphabets are counted by torch.unique
 
 
 def _chunk_bits_dtype(chunk_size: int) -> str:
@@ -214,9 +199,9 @@ class HuffmanCodec:
 
     @staticmethod
     def fit(symbols: torch.Tensor) -> "HuffmanCodec":
-        """Fit to an integer tensor.  Dense alphabets (span <= 2**22) are
-        counted by ``symbol_hist_op`` on the tensor's device; wider ones by
-        ``np.unique`` on the host (counted in ``HOST_ROUTE["fit"]``)."""
+        """Fit to an integer tensor on its device: dense alphabets (span
+        <= 2**22) are counted by ``symbol_hist_op``, wider (sparse) ones by
+        ``torch.unique``, where the reference takes ``np.unique``."""
         flat = symbols.reshape(-1).to(torch.int32)
         if flat.numel() == 0:
             empty = np.zeros(0, np.int64)
@@ -233,10 +218,10 @@ class HuffmanCodec:
             rank = torch.cumsum(hist > 0, 0) - 1  # symbol value -> alphabet index
             inv = rank[shifted.to(torch.int64)]
         else:
-            _host_route("fit")
-            alphabet, inv_np, counts = np.unique(
-                flat.cpu().numpy(), return_inverse=True, return_counts=True)
-            inv = torch.from_numpy(inv_np.reshape(-1)).to(flat.device)
+            values, inv, counts_t = torch.unique(flat, return_inverse=True,
+                                                 return_counts=True)
+            alphabet = values.cpu().numpy()
+            counts = counts_t.cpu().numpy().astype(np.int64)
         lengths = _limited_code_lengths(counts)
         codec = HuffmanCodec(alphabet, lengths, _canonical_codes(lengths))
         codec._inv = inv  # the remap of the fitted symbols, for the next encode
@@ -252,11 +237,13 @@ class HuffmanCodec:
         return inv
 
     # -- encode ---------------------------------------------------------------
-    def _device_eligible(self) -> bool:
-        """The kernels work in 32-bit windows: every code length must fit
-        (always true for a codec this package fitted)."""
-        n = len(self.alphabet)
-        return 0 < n < (1 << 31) and int(self.lengths.max()) <= 32
+    def _check_lengths(self) -> None:
+        """The kernels work in 32-bit windows.  Every codec this package or
+        the reference fits caps its lengths there, so a longer code can only
+        come from a damaged table."""
+        if self.lengths.size and int(self.lengths.max()) > _FMT_CODE_LEN:
+            raise ValueError(f"corrupt Huffman table: a {int(self.lengths.max())}-bit "
+                             f"code (the format caps codes at {_FMT_CODE_LEN} bits)")
 
     def _pack_inputs(self, flat: torch.Tensor, chunk_size: int):
         """Per-symbol code lengths and codewords of ``flat`` as [C, chunk_size]
@@ -275,31 +262,14 @@ class HuffmanCodec:
 
     def _device_pack(self, flat: torch.Tensor, chunk_size: int):
         """Pack on ``flat``'s device: returns (stream bytes, chunk_bits int64,
-        total bits), or None when the codec or chunk size is ineligible."""
-        if not self._device_eligible() or not 0 < chunk_size <= MAX_CHUNK:
-            return None
+        total bits)."""
+        self._check_lengths()
         words, chunk_bits = ops.huffman_encode_op(*self._pack_inputs(flat, chunk_size))
         bits = chunk_bits.cpu().numpy().astype(np.int64)
         used = -(-int(bits.max()) // 32)  # words past the widest chunk are zero
         local = words[:, :used].contiguous().cpu().numpy().view(np.uint32)
         stream, total = _splice_chunks(local, bits)
         return stream, bits, total
-
-    def _encode_bits(self, flat: np.ndarray) -> tuple[bytes, np.ndarray, int]:
-        """Host pack (the ``HOST_ROUTE`` encode): (stream bytes, per-symbol
-        cumulative bit ends, total bits)."""
-        inv = np.searchsorted(self.alphabet, flat)
-        lens = self.lengths[inv].astype(np.int64)
-        cws = self.codes[inv]
-        total = int(lens.sum())
-        ends = np.cumsum(lens)
-        starts = ends - lens
-        bit_idx = np.arange(total, dtype=np.int64)
-        sym_of_bit = np.searchsorted(ends, bit_idx, side="right")
-        pos_in_code = bit_idx - starts[sym_of_bit]
-        shift = (lens[sym_of_bit] - 1 - pos_in_code).astype(np.uint64)
-        bits = ((cws[sym_of_bit] >> shift) & np.uint64(1)).astype(np.uint8)
-        return np.packbits(bits).tobytes(), ends, total
 
     # -- decode tables ----------------------------------------------------------
     def _decode_tables(self) -> _Tables:
@@ -346,13 +316,11 @@ class HuffmanCodec:
 
     def _device_tables(self):
         """The multi-symbol LUT split into int32 arrays for the decode
-        kernel; None when the codec is ineligible.  Cached."""
+        kernel.  Cached."""
         cached = getattr(self, "_dev_tables", None)
         if cached is not None:
-            return cached or None
-        if not self._device_eligible():
-            self._dev_tables = False
-            return None
+            return cached
+        self._check_lengths()
         mt = self._multi_tables()
         t = mt.tables
         base = _id_shift0(mt.B)
@@ -394,9 +362,8 @@ class HuffmanCodec:
     # -- decode -------------------------------------------------------------------
     def decode_chunked_device(self, stream: bytes, n_symbols: int, chunk_size: int,
                               chunk_bits: np.ndarray, *, total_bits: int | None,
-                              device: torch.device) -> torch.Tensor | None:
-        """Decode a chunked stream on ``device``; returns int32 symbols, or
-        None when the codec or stream is ineligible for the kernels."""
+                              device: torch.device) -> torch.Tensor:
+        """Decode a chunked stream on ``device``; returns int32 symbols."""
         if n_symbols == 0:
             return torch.zeros(0, dtype=torch.int32, device=device)
         if self.alphabet.size == 0:
@@ -411,10 +378,10 @@ class HuffmanCodec:
             raise ValueError("chunk table inconsistent with stream length")
         if len(stream) < (total + 7) // 8:
             raise ValueError("truncated Huffman stream")
-        # int32 bit positions bound the eligible stream / chunk size
-        if (not self._device_eligible() or total >= 1 << 31
-                or chunk_size * 32 >= 1 << 31):
-            return None
+        # the decode kernel holds bit positions in int32
+        if total >= 1 << 31 or chunk_size * _FMT_CODE_LEN >= 1 << 31:
+            raise ValueError(f"Huffman stream of {total} bits in chunks of {chunk_size} "
+                             "is past the decoder's int32 bit positions")
         args, kw = self._decode_inputs(stream, n_symbols, chunk_size, ends - chunk_bits,
                                        device)
         ids = ops.huffman_decode_op(*args, **kw)
@@ -440,28 +407,6 @@ class HuffmanCodec:
                 torch.from_numpy(counts).to(device), tabs["lut_count"], tabs["lut_bits"],
                 tabs["lut_ids"], tabs["cw_map"], tabs["order"], tabs["len_sorted"])
         return args, {"chunk_size": chunk_size, "k": tabs["k"]}
-
-    def decode_bitwalk(self, stream: bytes, n_symbols: int) -> np.ndarray:
-        """Per-symbol host walk over an MSB-first stream (the ``HOST_ROUTE``
-        decode: any code length)."""
-        bits = np.unpackbits(np.frombuffer(stream, np.uint8)).tolist()
-        t = self._decode_tables()
-        fl_code, fl_idx, cnt = (t.first_code.tolist(), t.first_idx.tolist(),
-                                t.count_at.tolist())
-        out = np.empty(n_symbols, np.int32)
-        pos = 0
-        for i in range(n_symbols):
-            code = L = 0
-            while True:
-                if pos >= len(bits) or L >= t.max_len:
-                    raise ValueError("corrupt Huffman stream: no code matches")
-                code = (code << 1) | bits[pos]
-                pos += 1
-                L += 1
-                if cnt[L] and code - fl_code[L] < cnt[L]:
-                    out[i] = self.alphabet[t.order[fl_idx[L] + code - fl_code[L]]]
-                    break
-        return out
 
     # -- serialization --------------------------------------------------------------
     def table_bytes(self) -> bytes:
@@ -505,15 +450,13 @@ def encode_codes(codes: torch.Tensor, backend: str = "huffman+zlib", *,
     if backend in ("huffman", "huffman+zlib"):
         codec = HuffmanCodec.fit(flat)
         cs = int(chunk_size) if chunk_size else DEFAULT_CHUNK
+        if not 0 < cs <= MAX_CHUNK:
+            raise ValueError(f"chunk size {cs} outside 1..{MAX_CHUNK} (one chunk's "
+                             "words must fit the encode kernel's shared memory)")
         n = flat.numel()
         n_chunks = -(-n // cs) if n else 0
-        got = codec._device_pack(flat, cs) if n_chunks else (b"", np.zeros(0, np.int64), 0)
-        if got is None:
-            _host_route("encode")
-            stream, ends, total = codec._encode_bits(flat.cpu().numpy())
-            bnd = np.minimum(np.arange(1, n_chunks + 1, dtype=np.int64) * cs, n) - 1
-            got = stream, np.diff(np.concatenate([[0], ends[bnd]])), total
-        stream, chunk_bits, total = got
+        stream, chunk_bits, total = (codec._device_pack(flat, cs) if n_chunks
+                                     else (b"", np.zeros(0, np.int64), 0))
         # chunk table + bit stream travel together so zlib sees both
         payload = chunk_bits.astype(_chunk_bits_dtype(cs)).tobytes() + stream
         if backend == "huffman+zlib":
@@ -578,9 +521,6 @@ def decode_codes(blob: bytes, shape: tuple[int, ...], *, device) -> torch.Tensor
         codec, n, cs, chunk_bits, stream, total = parse_chunked(blob)
         out = codec.decode_chunked_device(stream, n, cs, chunk_bits,
                                           total_bits=total, device=device)
-        if out is None:
-            _host_route("decode")
-            out = torch.from_numpy(codec.decode_bitwalk(stream, n)).to(device)
         return out.reshape(shape)
     raise ValueError(f"unsupported entropy tag {tag!r} (legacy hf/hz blobs are "
                      "not read by this package yet)")

@@ -17,11 +17,8 @@ PyTorch compiles nothing per batch size, so decode is one batched call.
 from __future__ import annotations
 
 import io
-import os
 import struct
-import threading
 import zlib
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -363,40 +360,6 @@ A.register_container(_MAGIC, TiledCompressed)
 
 
 # ---------------------------------------------------------------------------
-# lane dispatch
-# ---------------------------------------------------------------------------
-
-_LANE_POOL: ThreadPoolExecutor | None = None
-_LANE_POOL_LOCK = threading.Lock()
-
-
-def _lane_pool() -> ThreadPoolExecutor:
-    """One shared, size-capped executor for every encode/decode call."""
-    global _LANE_POOL
-    with _LANE_POOL_LOCK:
-        if _LANE_POOL is None:
-            _LANE_POOL = ThreadPoolExecutor(
-                max(1, min(os.cpu_count() or 1, 8)), thread_name_prefix="gwtc-lane")
-    return _LANE_POOL
-
-
-def _map_lanes(fn, items, workers: int | None):
-    """``fn`` over lanes with at most ``workers`` lanes at once (default 1):
-    the list is cut into that many contiguous runs, each one serial task on
-    the shared pool, so order is kept.  Serial is the default because lane
-    threads contend for the interpreter lock and the stream: on an H100 they
-    made the 512-lane decode of the 512^3 field slower (PERF.md, measured by
-    ``profile_port.py``)."""
-    w = 1 if workers is None else max(1, min(workers, len(items)))
-    if w <= 1:
-        return [fn(it) for it in items]
-    bounds = np.linspace(0, len(items), w + 1).astype(int)
-    futs = [_lane_pool().submit(lambda ch: [fn(it) for it in ch], items[a:b])
-            for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
-    return [out for f in futs for out in f.result()]
-
-
-# ---------------------------------------------------------------------------
 # engine API
 # ---------------------------------------------------------------------------
 
@@ -404,7 +367,7 @@ def _map_lanes(fn, items, workers: int | None):
 def compress_tiled(x, tile=(64, 64, 64), *, rel_eb: float | None = None,
                    abs_eb: float | None = None, backend: str = "huffman+zlib",
                    predictor: str = "lorenzo", order: str = "cubic",
-                   max_levels: int = 5, workers: int | None = None, device=None):
+                   max_levels: int = 5, device=None):
     """Tile-grid compress; returns (artifact, reconstruction tensor).
 
     ``x`` is an array or tensor; it runs on ``device`` (None: the CUDA
@@ -422,8 +385,7 @@ def compress_tiled(x, tile=(64, 64, 64), *, rel_eb: float | None = None,
     tiles = split_tiles(pad_to_tiles(x, tile), tile)
     payload, recon_tiles = pred.encode_tiles(tiles, eb, order=order, levels=levels)
     recon = stitch_tiles(recon_tiles, tile_grid(tuple(x.shape), tile))
-    blobs = _map_lanes(lambda i: pred.lane_bytes(payload, i, backend),
-                       list(range(tiles.shape[0])), workers)
+    blobs = [pred.lane_bytes(payload, i, backend) for i in range(tiles.shape[0])]
     artifact = TiledCompressed(
         shape=tuple(x.shape), tile=tile, eb_abs=eb, backend=backend,
         tile_blobs=blobs, predictor=predictor, order=order, levels=levels)
@@ -453,8 +415,8 @@ def _check_lane(artifact: TiledCompressed, i: int, blob) -> bool:
                            expected_crc=expected, actual_crc=actual)
 
 
-def decode_lanes(artifact: TiledCompressed, lane_ids, *, workers: int | None = None,
-                 with_mask: bool = False, device=None):
+def decode_lanes(artifact: TiledCompressed, lane_ids, *, with_mask: bool = False,
+                 device=None):
     """Decode the named lanes; returns ``(recon [len(ids), *tile], n_decoded)``,
     or with ``with_mask=True`` also the mask of quarantined positions (filled
     with ``artifact.fill_value``).  Lanes with a CRC are checked before their
@@ -465,10 +427,8 @@ def decode_lanes(artifact: TiledCompressed, lane_ids, *, workers: int | None = N
     blobs = [artifact.tile_blobs[i] for i in lane_ids]
     good = [j for j, (i, b) in enumerate(zip(lane_ids, blobs))
             if _check_lane(artifact, i, b)]
-    items = _map_lanes(
-        lambda b: pred.parse_lane(b, tile=artifact.tile, levels=artifact.levels,
-                                  device=device),
-        [blobs[j] for j in good], workers)
+    items = [pred.parse_lane(blobs[j], tile=artifact.tile, levels=artifact.levels,
+                             device=device) for j in good]
     tile = tuple(artifact.tile)
     recon = None
     if good:
@@ -488,13 +448,11 @@ def decode_lanes(artifact: TiledCompressed, lane_ids, *, workers: int | None = N
     return recon, len(good)
 
 
-def decompress_tiled(artifact: TiledCompressed, *, workers: int | None = None,
-                     device=None) -> torch.Tensor:
+def decompress_tiled(artifact: TiledCompressed, *, device=None) -> torch.Tensor:
     """Full decode: every lane, stitched and cropped to the original shape.
     (A ``gwlz`` extras blob is ignored here, as in the reference: the
     enhancer is applied one layer up.)"""
-    recon, _ = decode_lanes(artifact, range(artifact.n_tiles), workers=workers,
-                            device=device)
+    recon, _ = decode_lanes(artifact, range(artifact.n_tiles), device=device)
     out = stitch_tiles(recon, artifact.grid)
     return out[tuple(slice(0, d) for d in artifact.shape)]
 
@@ -540,10 +498,9 @@ def assemble_region(recon: torch.Tensor, geom, tile: tuple[int, ...]) -> torch.T
     return block[crop]
 
 
-def decompress_region(artifact: TiledCompressed, roi, *, workers: int | None = None,
-                      device=None) -> torch.Tensor:
+def decompress_region(artifact: TiledCompressed, roi, *, device=None) -> torch.Tensor:
     """Decode only the tiles intersecting ``roi``; bit-identical to
     ``decompress_tiled(artifact)[roi]``."""
     ids, geom = region_tiles(artifact, roi)
-    recon, _ = decode_lanes(artifact, ids.tolist(), workers=workers, device=device)
+    recon, _ = decode_lanes(artifact, ids.tolist(), device=device)
     return assemble_region(recon, geom, artifact.tile)

@@ -105,18 +105,14 @@ def test_max_codeword_window_decodes():
     alphabet = np.arange(L.size, dtype=np.int32)
     codec = P.HuffmanCodec(alphabet, L, P._canonical_codes(L))
     sym = np.concatenate([np.arange(L.size), [np.argmax(L)]]).astype(np.int32)
-    stream, ends, total = codec._encode_bits(sym)
-    cs = 8
-    n_chunks = -(-sym.size // cs)
-    bnd = np.minimum(np.arange(1, n_chunks + 1) * cs, sym.size) - 1
-    chunk_bits = np.diff(np.concatenate([[0], ends[bnd]]))
-    got = codec.decode_chunked_device(stream, sym.size, cs, chunk_bits,
+    rcodec = R.HuffmanCodec(alphabet, L, R._canonical_codes(L))
+    stream, chunk_bits, total = _host_pack(rcodec, sym, 8)
+    got = codec.decode_chunked_device(stream, sym.size, 8, chunk_bits,
                                       total_bits=total, device=torch.device("cpu"))
     np.testing.assert_array_equal(got.numpy(), sym)
     # the reference's host decode agrees on the same stream
-    rcodec = R.HuffmanCodec(alphabet, L, R._canonical_codes(L))
     np.testing.assert_array_equal(
-        rcodec.decode_chunked(stream, sym.size, cs, chunk_bits, total_bits=total), sym)
+        rcodec.decode_chunked(stream, sym.size, 8, chunk_bits, total_bits=total), sym)
 
 
 def test_fuzz_parity():
@@ -135,15 +131,22 @@ def test_fuzz_parity():
                 P.decode_codes(port, codes.shape, device="cpu").numpy(), codes)
 
 
-def test_host_route_is_counted():
-    """Only a span wider than the dense limit leaves the device, and it is
-    counted; ordinary lanes keep every count at zero."""
-    P.reset_host_route()
-    P.encode_codes(_t(_cases()["skewed"]), "huffman+zlib")
-    assert P.HOST_ROUTE == {"fit": 0, "encode": 0, "decode": 0}
-    P.encode_codes(_t(_cases()["extreme_magnitude"]), "huffman")
-    assert P.HOST_ROUTE["fit"] == 1
-    P.reset_host_route()
+@pytest.mark.parametrize("span_bits", [23, 28, 31])
+def test_wide_span_fit_matches_reference(span_bits):
+    """A sparse alphabet wider than the dense histogram's 2**22 bins is
+    counted by torch.unique on the tensor's own device, where the reference
+    takes np.unique: same codec, same blob."""
+    rng = np.random.default_rng(span_bits)
+    values = rng.integers(-(2 ** (span_bits - 1)), 2 ** (span_bits - 1), 40)
+    values[:2] = [-(2 ** (span_bits - 1)), 2 ** (span_bits - 1) - 1]
+    codes = values[rng.zipf(1.6, 5000) % values.size].astype(np.int32)
+    codec = P.HuffmanCodec.fit(_t(codes))
+    rcodec = R.HuffmanCodec.fit(codes, use_accel=False)
+    np.testing.assert_array_equal(codec.alphabet, rcodec.alphabet)
+    np.testing.assert_array_equal(codec.lengths, rcodec.lengths)
+    port = P.encode_codes(_t(codes), "huffman+zlib")
+    assert port == R.encode_codes(codes, "huffman+zlib", use_pallas=False)
+    np.testing.assert_array_equal(P.decode_codes(port, codes.shape, device="cpu").numpy(), codes)
 
 
 # -- plain kernels against the reference's Pallas kernels / jnp path ------------
@@ -204,41 +207,55 @@ def test_huffman_decode_plain_matches_reference(case):
     np.testing.assert_array_equal(codec.alphabet[got.reshape(-1)[:n]], codes)
 
 
-def _hc_blob(codec, sym: np.ndarray, cs: int) -> bytes:
-    """Frame an ``hc`` blob around a stream packed on the host by ``codec``
+def _host_pack(rcodec, sym: np.ndarray, cs: int):
+    """Pack ``sym`` with the reference's host bit packer (any code length):
+    (stream bytes, chunk_bits, total bits)."""
+    stream, ends, total = rcodec._encode_bits(sym)
+    n_chunks = -(-sym.size // cs)
+    bnd = np.minimum(np.arange(1, n_chunks + 1) * cs, sym.size) - 1
+    return stream.tobytes(), np.diff(np.concatenate([[0], ends[bnd]])), total
+
+
+def _hc_blob(rcodec, sym: np.ndarray, cs: int) -> bytes:
+    """Frame an ``hc`` blob around a stream packed on the host by ``rcodec``
     (which may hold codes longer than the encoder would ever emit)."""
     import struct
 
-    stream, ends, total = codec._encode_bits(sym)
-    n_chunks = -(-sym.size // cs)
-    bnd = np.minimum(np.arange(1, n_chunks + 1) * cs, sym.size) - 1
-    chunk_bits = np.diff(np.concatenate([[0], ends[bnd]]))
-    table = codec.table_bytes()
-    return (b"RPREhc" + struct.pack("<QIII", sym.size, cs, n_chunks, len(table)) + table
+    stream, chunk_bits, total = _host_pack(rcodec, sym, cs)
+    table = rcodec.table_bytes()
+    return (b"RPREhc" + struct.pack("<QIII", sym.size, cs, chunk_bits.size, len(table))
+            + table
             + struct.pack("<Q", total)
             + chunk_bits.astype(P._chunk_bits_dtype(cs)).tobytes() + stream)
 
 
-@pytest.mark.parametrize("route", ["encode", "decode"])
-def test_host_routes_match_reference(route):
-    """What the kernels cannot take leaves the device only through the
-    counted host route, with the reference's bytes and symbols."""
-    P.reset_host_route()
-    if route == "encode":  # a chunk larger than the encode kernel's shared memory
+def test_oversize_chunk_reference_blob_decodes():
+    """A reference blob whose chunks are larger than the encode kernel's
+    shared memory still decodes: the decode kernel has no such limit."""
+    codes = np.random.default_rng(8).integers(-30, 30, 20000).astype(np.int32)
+    cs = P.MAX_CHUNK + 1
+    blob = R.encode_codes(codes, "huffman+zlib", chunk_size=cs, use_pallas=False)
+    np.testing.assert_array_equal(P.decode_codes(blob, codes.shape, device="cpu").numpy(),
+                                  codes)
+
+
+@pytest.mark.parametrize("case", ["oversize_chunk", "overlong_code"])
+def test_unsupported_streams_are_refused(case):
+    """What the kernels cannot take is refused on every device, never moved
+    to a host path: an encode chunk past the kernel's shared memory, and a
+    table with 40-bit codes (no encoder writes one; the reference's host bit
+    walk still reads it)."""
+    if case == "oversize_chunk":
         codes = np.random.default_rng(8).integers(-30, 30, 20000).astype(np.int32)
-        cs = P.MAX_CHUNK + 1
-        port = P.encode_codes(_t(codes), "huffman+zlib", chunk_size=cs)
-        assert port == R.encode_codes(codes, "huffman+zlib", chunk_size=cs, use_pallas=False)
-        np.testing.assert_array_equal(P.decode_codes(port, codes.shape, device="cpu").numpy(),
-                                      codes)
-    else:  # a crafted table with 40-bit codes: past the kernels' 32-bit window
-        L = P._limited_code_lengths(np.asarray([1, 1] + [2**i for i in range(1, 50)]), 40)
-        assert int(L.max()) > 32
-        alphabet = np.arange(L.size, dtype=np.int32) - 7
-        codec = P.HuffmanCodec(alphabet, L, P._canonical_codes(L))
-        sym = np.concatenate([alphabet, alphabet[::-1], [alphabet[np.argmax(L)]]])
-        blob = _hc_blob(codec, sym, 16)
-        np.testing.assert_array_equal(P.decode_codes(blob, sym.shape, device="cpu").numpy(), sym)
-        np.testing.assert_array_equal(R.decode_codes(blob, sym.shape, use_pallas=False), sym)
-    assert P.HOST_ROUTE[route] == 1
-    P.reset_host_route()
+        with pytest.raises(ValueError, match="chunk size"):
+            P.encode_codes(_t(codes), "huffman+zlib", chunk_size=P.MAX_CHUNK + 1)
+        return
+    L = P._limited_code_lengths(np.asarray([1, 1] + [2**i for i in range(1, 50)]), 40)
+    assert int(L.max()) > 32
+    alphabet = np.arange(L.size, dtype=np.int32) - 7
+    rcodec = R.HuffmanCodec(alphabet, L, R._canonical_codes(L))
+    sym = np.concatenate([alphabet, alphabet[::-1], [alphabet[np.argmax(L)]]])
+    blob = _hc_blob(rcodec, sym, 16)
+    np.testing.assert_array_equal(R.decode_codes(blob, sym.shape, use_pallas=False), sym)
+    with pytest.raises(ValueError, match="corrupt Huffman table"):
+        P.decode_codes(blob, sym.shape, device="cpu")
