@@ -5,26 +5,40 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build   -- compile the four CUDA kernels from ``src/repro_torch/csrc``
+1. build   -- compile the six CUDA kernels from ``src/repro_torch/csrc``
               (one nvcc per source, all at once) and time it;
-2. edges   -- each kernel against its plain PyTorch version on the card,
-              bit for bit (tolerance 0), on edge cases: .5 ties, negatives,
-              |q| near 2**25, ragged tiles and ranks 1-2, spans above 4096,
-              short last chunks, codes longer than the 12-bit LUT up to the
-              32-bit maximum codeword;
+2. edges   -- each kernel against its plain PyTorch version on the card on
+              edge cases; bit for bit (tolerance 0) for the integer kernels:
+              .5 ties, negatives, |q| near 2**25, ragged tiles and ranks
+              1-2, spans above 4096, short last chunks, codes longer than
+              the 12-bit LUT up to the 32-bit maximum codeword, values on /
+              below / above the group edges, duplicate edges, G = 1, 20 and
+              the largest G; for ``enhancer_fused`` within
+              |diff| <= 1e-5 (1 + max|plain|) (the kernel fuses multiply-adds
+              the plain version rounds twice): G = 1 on 1x1 .. 64x64 slices,
+              ids changing inside the halo, an inactive group, the clamp,
+              direct (non-residual) mode;
 3. main    -- the main path at full size: nyx_like_field((512,)*3,
               "temperature", seed=0), tile 64^3, rel_eb 1e-3, huffman+zlib,
               through compress_tiled -> to_bytes -> from_bytes ->
               decompress_tiled and decompress_region; launch counters are
               zeroed just before and read just after;
-4. kernels -- each kernel again at the main path's shapes: bit-exact
-              against its plain version, then timed (see ``kernel_ms`` and
-              ``events_ms``) beside the plain version, a library call where
-              one exists, and the bound (least time for the bytes it must
-              move at 3.35 TB/s);
-5. cpu     -- the 128^3 corner compressed on the card and on the CPU gives
+4. gwlz    -- the GWLZ enhancer path on the same field at the paper's model
+              width (G = 20, C = 9, batch 10; 1 epoch, cut from 300):
+              GWLZ.compress_tiled -> to_bytes -> from_bytes -> enhanced
+              decompress_tiled and decompress_region; counters zeroed just
+              before and read just after.  Checks: the decode's PSNR equals
+              the compress-time psnr_gwlz, region == full crop bit for bit,
+              psnr_gwlz >= psnr_sz - 1e-3, group_hist and enhancer_fused
+              launched;
+5. kernels -- each kernel again at its path's shapes: against its plain
+              version, then timed (see ``kernel_ms`` and ``events_ms``)
+              beside the plain version, a library call where one exists,
+              and the bound (the larger of bytes over 3.35 TB/s and
+              operations over 67 TFLOP/s);
+6. cpu     -- the 128^3 corner compressed on the card and on the CPU gives
               identical GWTC bytes;
-6. golden  -- tests/golden/gwtc_v1.bin decodes on the card bit for bit.
+7. golden  -- tests/golden/gwtc_v1.bin decodes on the card bit for bit.
 
 Each phase prints a JSON line.  Then come the ``kernels`` line, the card's
 name and power limit as nvidia-smi reports them, and last
@@ -32,6 +46,7 @@ name and power limit as nvidia-smi reports them, and last
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -44,6 +59,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 / int32 rate
 SHAPE, TILE, REL_EB, BACKEND = (512, 512, 512), (64, 64, 64), 1e-3, "huffman+zlib"
+GWLZ_EPOCHS = 1  # the paper trains 300 epochs (~1M steps at 512^3): no smoke
 ROI = ((100, 228), (37, 101), (300, 364))
 KERNELS = {  # counter name -> (source, TPU kernel it replaces, __global__ name prefix)
     "lorenzo_quant_tiles": ("src/repro_torch/csrc/lorenzo_quant.cu",
@@ -57,7 +73,13 @@ KERNELS = {  # counter name -> (source, TPU kernel it replaces, __global__ name 
     "huffman_decode": ("src/repro_torch/csrc/huffman_decode.cu",
                        "src/repro/kernels/huffman_decode.py:106",
                        "huffman_decode_probe_kernel"),
+    "group_hist": ("src/repro_torch/csrc/group_hist.cu",
+                   "src/repro/kernels/group_hist.py:73", "group_hist_kernel"),
+    "enhancer_fused": ("src/repro_torch/csrc/enhancer_fused.cu",
+                       "src/repro/kernels/enhancer_fused.py:68", "enhancer_grouped_kernel"),
 }
+GWLZ_KERNELS = ("group_hist", "enhancer_fused")  # counted on the gwlz path
+ENHANCE_RTOL = 1e-5  # |kernel - plain| <= ENHANCE_RTOL * (1 + max|plain|)
 
 
 def emit(obj) -> None:
@@ -106,7 +128,7 @@ def events_ms(fn, reps: int) -> float:
 
 def kernel_ms(fn, kernel: str, reps: int) -> tuple[float, str]:
     """Device time of the kernel alone: its own intervals in a torch.profiler
-    trace of ``reps`` calls, over its launch count, so the wrapper's host
+    trace of ``reps`` calls, over the launches it recorded, so the wrapper's host
     work and output allocation are left out.  Where the profiler records no
     device time it falls back to :func:`events_ms`.  Returns (ms, method)."""
     import torch
@@ -124,16 +146,21 @@ def kernel_ms(fn, kernel: str, reps: int) -> tuple[float, str]:
     count = sum(e.count for e in hits)
     if count == 0:
         return events_ms(fn, reps), "events"
-    check(count == reps, f"profiler saw {count} launches of {kernel}, not {reps}")
-    return sum(e.self_device_time_total for e in hits) / count / 1e3, "profiler"
+    # the trace may miss a launch (one of ten long enhancer launches was
+    # missing in one run): average over the launches it recorded
+    check(count <= reps, f"profiler saw {count} launches of {kernel}, more than {reps}")
+    return (sum(e.self_device_time_total for e in hits) / count / 1e3,
+            f"profiler {count}/{reps}")
 
 
 class Parity:
-    """Runs kernel-vs-plain comparisons and keeps each kernel's worst error."""
+    """Runs kernel-vs-plain comparisons and keeps each kernel's worst error
+    (and, for float kernels, the tolerance it was held to)."""
 
     def __init__(self):
         self.err = {name: 0 for name in KERNELS}
         self.cases = {name: 0 for name in KERNELS}
+        self.tol = {name: 0 for name in KERNELS}
 
     def compare(self, name: str, case: str, got, want) -> None:
         import torch
@@ -145,13 +172,29 @@ class Parity:
         self.cases[name] += 1
         check(err == 0, f"{name} [{case}] differs from its plain version by {err}")
 
+    def compare_float(self, name: str, case: str, got, want, rtol: float) -> None:
+        """|got - want| <= rtol (1 + max|want|), both finite."""
+        import torch
+
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"{name} [{case}] shape {tuple(got.shape)} != "
+              f"{tuple(want.shape)}")
+        check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()),
+              f"{name} [{case}] has non-finite values")
+        err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        tol = rtol * (1 + (float(want.abs().max()) if want.numel() else 0.0))
+        self.err[name] = max(self.err[name], err)
+        self.tol[name] = max(self.tol[name], tol)
+        self.cases[name] += 1
+        check(err <= tol, f"{name} [{case}] differs from its plain version by {err} > {tol}")
+
 
 def edge_parity(par: Parity) -> None:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import group_hist, huffman_decode, huffman_encode, ref
-    from repro_torch.kernels import lorenzo_quant
+    from repro_torch.kernels import enhancer_fused, group_hist, huffman_decode
+    from repro_torch.kernels import huffman_encode, lorenzo_quant, ref
     from repro_torch.sz import entropy
 
     dev = torch.device("cuda")
@@ -217,7 +260,62 @@ def edge_parity(par: Parity) -> None:
         par.compare("huffman_decode", case, ids, ref.huffman_decode_ref(*args, **kw))
         got = torch.from_numpy(codec.alphabet).to(dev)[ids.reshape(-1)[: sym.size]]
         check(torch.equal(got, flat), f"huffman round trip [{case}] lost symbols")
-    emit({"phase": "edges", "cases": par.cases, "max_abs_err": par.err})
+
+    # group_hist: values on every edge, below the first and above the last,
+    # duplicate edges, G = 1, 20 and the largest G, sizes off the block
+    for case, (G, n) in {"G1": (1, 1000), "G20_dup_edges": (20, 262147),
+                         "G20_ragged": (20, 77), f"G{group_hist.MAX_GROUPS}":
+                         (group_hist.MAX_GROUPS, 100003)}.items():
+        edges = np.sort(rng.normal(0, 1, G + 1)).astype(np.float32)
+        if G > 4:
+            edges[3:5] = edges[2]
+        vals = np.concatenate([edges, [edges[0] - 1, edges[-1] + 1, -np.inf, np.inf],
+                               rng.normal(0, 1.5, n)]).astype(np.float32)
+        xt, et = torch.from_numpy(vals).to(dev), torch.from_numpy(edges).to(dev)
+        par.compare("group_hist", case, group_hist.group_hist(xt, et),
+                    ref.group_hist_ref(xt, et))
+
+    # enhancer_fused: the TPU kernel's G = 1 contract on assorted shapes, then
+    # the grouped form with ids changing inside every halo
+    C = 9
+
+    def f(*shape, scale=0.5):
+        return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32)).to(dev)
+
+    p1 = {"w1": f(3, 3, 1, C), "b1": f(C), "gamma": f(C) + 1, "beta": f(C),
+          "w2": f(3, 3, C, 1), "b2": f(1)}
+    s1 = {"mean": f(C), "var": f(C).abs() + 0.5}
+    order = ("w1", "b1", "gamma", "beta")
+    for shape in [(2, 1, 1), (3, 3, 100), (2, 17, 45), (2, 64, 64)]:
+        xt = f(*shape, scale=1.0)
+        got = enhancer_fused.enhancer_grouped(
+            xt, None, ref.single_enhancer(*(p1[k] for k in order), s1["mean"], s1["var"],
+                                          p1["w2"], p1["b2"]), mode="pred")
+        want = ref.enhancer_fused_ref(xt, *(p1[k] for k in order), s1["mean"], s1["var"],
+                                      p1["w2"], p1["b2"])
+        par.compare_float("enhancer_fused", f"G1_{shape[1]}x{shape[2]}", got, want,
+                          ENHANCE_RTOL)
+    G = 20
+    lo = torch.from_numpy(np.sort(rng.normal(0, 1, G)).astype(np.float32)).to(dev)
+    rscale = f(G).abs() + 0.01
+    rscale[3] = 0.0  # an inactive group
+    packed = ref.pack_enhancers(lo, f(G).abs() + 0.1, f(G), rscale, f(G, 9, C), f(G, C),
+                                f(G, C).abs() + 0.5, f(G, C), f(G, 9, C))
+    xt = f(4, 50, 70, scale=1.0)
+    ids = torch.from_numpy(rng.integers(0, G, xt.shape).astype(np.int32)).to(dev)
+    for case, mode, clamp in [("grouped_pred", "pred", None),
+                              ("grouped_residual_inactive", "residual", None),
+                              ("grouped_clamp", "residual", 0.01),
+                              ("grouped_direct", "direct", None)]:
+        got = enhancer_fused.enhancer_grouped(xt, ids, packed, mode=mode, clamp_eb=clamp)
+        want = ref.enhancer_grouped_ref(xt, ids, packed, mode=mode, clamp_eb=clamp)
+        par.compare_float("enhancer_fused", case, got, want, ENHANCE_RTOL)
+        if mode == "residual":
+            check(torch.equal(got[ids == 3], xt[ids == 3]), "an inactive group changed x")
+        if clamp is not None:
+            check(bool(((got - xt).abs() <= clamp + 1e-6).all()), "the clamp let a value out")
+    emit({"phase": "edges", "cases": par.cases, "max_abs_err": par.err,
+          "float_tolerance": {k: v for k, v in par.tol.items() if v}})
 
 
 def main_path(x_np):
@@ -252,7 +350,8 @@ def main_path(x_np):
     check(torch.equal(out, recon), "decode differs from the compress-time reconstruction")
     crop = out[tuple(slice(a, b) for a, b in ROI)]
     check(torch.equal(region, crop), "region decode differs from the full decode's crop")
-    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    check(all(launches[k] > 0 for k in KERNELS if k not in GWLZ_KERNELS),
+          f"a kernel never launched: {launches}")
     emit({"phase": "main", "shape": list(SHAPE), "tile": list(TILE), "rel_eb": REL_EB,
           "backend": BACKEND, "eb_abs": art.eb_abs, "compress_s": t1 - t0,
           "decompress_s": t2 - t1, "region_ms": (t3 - t2) * 1e3, "roi": [list(r) for r in ROI],
@@ -262,7 +361,171 @@ def main_path(x_np):
     return art, blob, launches
 
 
-def kernel_rows(par: Parity, x_np, art, launches) -> list[dict]:
+def gwlz_path(x_np):
+    """The enhancer path: GWLZ compress (SZ, training, calibration, gate,
+    enhancement), container round trip, enhanced full and region decode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import metrics
+    from repro_torch.core.pipeline import GWLZ, GWLZTrainConfig, deserialize_model
+    from repro_torch.kernels import ops
+    from repro_torch.sz import TiledCompressed
+
+    cfg = GWLZTrainConfig(epochs=GWLZ_EPOCHS)
+    gw = GWLZ(train_cfg=cfg)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    art, stats = gw.compress_tiled(x_np, TILE, rel_eb=REL_EB, predictor="lorenzo")
+    blob = art.to_bytes()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    back = TiledCompressed.from_bytes(blob)
+    out = gw.decompress_tiled(back)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    region = gw.decompress_region(back, ROI)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+
+    x = torch.from_numpy(x_np).to(out.device)
+    check(tuple(out.shape) == SHAPE and bool(torch.isfinite(out).all()), "gwlz decode shape")
+    psnr = float(metrics.psnr(x, out))
+    check(psnr == stats.psnr_gwlz, f"decode PSNR {psnr} != compress-time {stats.psnr_gwlz}")
+    crop = out[tuple(slice(a, b) for a, b in ROI)]
+    check(torch.equal(region, crop), "enhanced region differs from the full decode's crop")
+    check(stats.psnr_gwlz >= stats.psnr_sz - 1e-3,
+          f"enhancement lost PSNR: {stats.psnr_sz} -> {stats.psnr_gwlz}")
+    check(all(launches[k] > 0 for k in GWLZ_KERNELS), f"an enhancer kernel never ran: {launches}")
+    model = deserialize_model(art.extras["gwlz"])
+    sec = stats.seconds
+    steps = (np.prod(SHAPE) // (TILE[1] * TILE[2])) // cfg.batch_size * cfg.epochs
+    emit({"phase": "gwlz", "shape": list(SHAPE), "tile": list(TILE), "rel_eb": REL_EB,
+          "n_groups": cfg.n_groups, "channels": cfg.channels, "batch_size": cfg.batch_size,
+          "epochs": cfg.epochs, "steps": int(steps), "compress_s": t1 - t0,
+          "seconds": sec, "train_ms_per_step": 1e3 * sec["train"] / steps,
+          "decompress_s": t2 - t1, "region_ms": (t3 - t2) * 1e3,
+          "psnr_sz": stats.psnr_sz, "psnr_gwlz": stats.psnr_gwlz, "psnr_decode": psnr,
+          "overhead": stats.overhead, "ratio_sz": stats.cr_sz, "ratio_gwlz": stats.cr_gwlz,
+          "max_err_sz": stats.max_err_sz, "max_err_gwlz": stats.max_err_gwlz,
+          "model_params": stats.n_model_params,
+          "active_groups": int((model.rscale > 0).sum()),
+          "loss_epoch0": [round(float(v), 6) for v in stats.loss_history[0]],
+          "launches": launches})
+    return art, model, launches
+
+
+def time_row(rows, name, kern, plain, nbytes, nops, library=None, reps=200, plain_reps=20):
+    """Time kernel, plain version and library call; store the row with its
+    bound (the larger of bytes over HBM rate and operations over the
+    float32 rate)."""
+    ms, ms_by = kernel_ms(kern, KERNELS[name][2], reps)
+    rows[name] = {
+        "ms": ms, "ms_by": ms_by, "call_ms": events_ms(kern, reps),
+        "plain_ms": events_ms(plain, plain_reps),
+        "library_ms": None if library is None else events_ms(library, reps),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= nops / FP32_OPS_PER_S
+        else "operations",
+        "shape_note": None}
+
+
+def gwlz_kernel_rows(par: Parity, rows: dict, gw_art, model) -> None:
+    """Parity and timing of group_hist and enhancer_fused on the enhanced
+    full decode's own launch: every decoded tile as slices, the trained
+    model's edges and table."""
+    # the enhanced full decode's inputs: every decoded tile as slices
+    import torch
+
+    from repro_torch.core import enhancer
+    from repro_torch.kernels import enhancer_fused, group_hist, ref
+    from repro_torch.sz.tiled import decode_lanes
+
+    row = functools.partial(time_row, rows)
+
+    recon, _ = decode_lanes(gw_art, range(gw_art.n_tiles))
+    xs = recon.reshape((-1,) + tuple(TILE[1:])).contiguous()
+    edges = model.edges
+    G = edges.numel() - 1
+    ids, hist = group_hist.group_hist(xs, edges)
+    par.compare("group_hist", "gwlz_decode", (ids, hist), ref.group_hist_ref(xs, edges))
+    bounds = edges[1:-1].contiguous()
+    n = xs.numel()
+    # bytes: read x, write ids (+ edges, hist); operations: G compares a value
+    row("group_hist", lambda: group_hist.group_hist(xs, edges),
+        lambda: ref.group_hist_ref(xs, edges), 8 * n + 8 * G + 4, G * n,
+        library=lambda: torch.bincount(torch.bucketize(xs, bounds, right=True).reshape(-1),
+                                       minlength=G), reps=20, plain_reps=2)
+    rows["group_hist"]["shape_note"] = f"x {list(xs.shape)} f32, {G} groups"
+
+    packed = model.packed()
+    C = enhancer.DEFAULT_CHANNELS
+    mode = "residual"
+    # held in prediction units (the residual epilogue adds x, which would
+    # swamp a relative tolerance); then the residual output to the same
+    # bound scaled by rscale, plus the rounding of x + rhat
+    got = enhancer_fused.enhancer_grouped(xs, ids, packed, mode="pred")
+    want = ref.enhancer_grouped_ref(xs, ids, packed, mode="pred")
+    par.compare_float("enhancer_fused", "gwlz_decode_pred", got, want, ENHANCE_RTOL)
+    tol = ENHANCE_RTOL * (1 + float(want.abs().max())) * float(model.rscale.max())
+    del want
+    got = enhancer_fused.enhancer_grouped(xs, ids, packed, mode=mode)
+    diff = (got - ref.enhancer_grouped_ref(xs, ids, packed, mode=mode)).abs()
+    check(bool((diff <= tol + torch.abs(xs) * 2**-23).all()),
+          f"enhancer_fused residual output off by {float(diff.max())} (tolerance {tol})")
+    del got, diff
+    # bytes: read x and ids, write out (+ the table); operations: 9 neighbours x
+    # C channels x 9 taps + 9C conv2 taps, one FMA (2 flop) each, a pixel
+    flop = 2 * (81 * C + 9 * C) * n
+    row("enhancer_fused", lambda: enhancer_fused.enhancer_grouped(xs, ids, packed, mode=mode),
+        lambda: ref.enhancer_grouped_ref(xs, ids, packed, mode=mode),
+        12 * n + 4 * packed.numel(), flop, reps=10, plain_reps=1)
+    rows["enhancer_fused"]["shape_note"] = (f"x/ids {list(xs.shape)}, G={G}, C={C}, "
+                                            f"{mode} (the enhanced full decode's launch)")
+    # the TPU kernel's own contract, G = 1, on the same slices scaled to
+    # [0, 1] (its inputs are normalised); its library yardstick is one cuDNN
+    # conv -> affine -> relu -> conv in float32
+    xs = ((xs - xs.min()) / (xs.max() - xs.min())).contiguous()
+    p1 = {k: v[0] for k, v in model.params.items()}
+    s1 = {k: v[0] for k, v in model.bn_state.items()}
+    single = ref.single_enhancer(p1["w1"], p1["b1"], p1["gamma"], p1["beta"], s1["mean"],
+                                 s1["var"], p1["w2"], p1["b2"])
+    par.compare_float("enhancer_fused", "G1_gwlz_slices",
+                      enhancer_fused.enhancer_grouped(xs, None, single, mode="pred"),
+                      ref.enhancer_fused_ref(xs, p1["w1"], p1["b1"], p1["gamma"], p1["beta"],
+                                             s1["mean"], s1["var"], p1["w2"], p1["b2"]),
+                      ENHANCE_RTOL)
+    bn_scale, bn_shift = ref.fold_bn(p1["gamma"], p1["beta"], s1["mean"], s1["var"])
+    wc1 = p1["w1"].permute(3, 2, 0, 1).contiguous()  # [C, 1, 3, 3]
+    wc2 = p1["w2"].permute(3, 2, 0, 1).contiguous()  # [1, C, 3, 3]
+
+    def library_g1():
+        import torch.nn.functional as F
+
+        with enhancer.fp32_convs():
+            h = F.conv2d(xs[:, None], wc1, p1["b1"], padding=1)
+            h = torch.relu(h * bn_scale[None, :, None, None] + bn_shift[None, :, None, None])
+            return F.conv2d(h, wc2, p1["b2"], padding=1)[:, 0]
+
+    g1_ms, g1_by = kernel_ms(lambda: enhancer_fused.enhancer_grouped(xs, None, single,
+                                                                     mode="pred"),
+                             KERNELS["enhancer_fused"][2], 10)
+    g1_flop = 2 * (81 * C + 9 * C) * n
+    rows["enhancer_fused"]["g1"] = {
+        "shape": f"x {list(xs.shape)}, G=1, C={C}", "ms": g1_ms, "ms_by": g1_by,
+        "plain_ms": events_ms(lambda: ref.enhancer_fused_ref(
+            xs, p1["w1"], p1["b1"], p1["gamma"], p1["beta"], s1["mean"], s1["var"],
+            p1["w2"], p1["b2"]), 1),
+        "library_ms": events_ms(library_g1, 10),
+        "bound_ms": max(8 * n / HBM_BYTES_PER_S, g1_flop / FP32_OPS_PER_S) * 1e3,
+        "bound_by": "operations" if g1_flop / FP32_OPS_PER_S > 8 * n / HBM_BYTES_PER_S
+        else "bytes"}
+
+
+
+def kernel_rows(par: Parity, x_np, art, launches, gw_art, model, gw_launches) -> list[dict]:
     """Parity and timing of each kernel on the main path's own shapes."""
     import numpy as np
     import torch
@@ -279,16 +542,7 @@ def kernel_rows(par: Parity, x_np, art, launches) -> list[dict]:
     lane = int(np.argsort(sizes)[len(sizes) // 2])  # the median-size lane
     rows = {}
 
-    def row(name, kern, plain, nbytes, nops, library=None, reps=200, plain_reps=20):
-        ms, ms_by = kernel_ms(kern, KERNELS[name][2], reps)
-        rows[name] = {
-            "ms": ms, "ms_by": ms_by, "call_ms": events_ms(kern, reps),
-            "plain_ms": events_ms(plain, plain_reps),
-            "library_ms": None if library is None else events_ms(library, reps),
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= nops / FP32_OPS_PER_S
-            else "operations",
-            "shape_note": None}
+    row = functools.partial(time_row, rows)
 
     codes = lorenzo_quant.lorenzo_quant_tiles(tiles, eb)
     par.compare("lorenzo_quant_tiles", "main_512x64^3", codes,
@@ -335,14 +589,21 @@ def kernel_rows(par: Parity, x_np, art, launches) -> list[dict]:
     rows["huffman_decode"]["shape_note"] = (f"{args[0].numel()} stream words, "
                                             f"ids [{ids.shape[0]}, {ids.shape[1]}]")
 
+    gwlz_kernel_rows(par, rows, gw_art, model)
+
     out = []
     for name, (source, replaces, _) in KERNELS.items():
         r = rows[name]
+        path_launches = gw_launches if name in GWLZ_KERNELS else launches
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[name], "max_abs_err": par.err[name],
+                    "launches": path_launches[name], "max_abs_err": par.err[name],
                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                    "ms_by": r["ms_by"], "call_ms": r["call_ms"], "shape": r["shape_note"]})
+                    "ms_by": r["ms_by"], "call_ms": r["call_ms"], "shape": r["shape_note"],
+                    "launches_path": "gwlz" if name in GWLZ_KERNELS else "main",
+                    "launches_gwlz": gw_launches[name],
+                    **({"tolerance": par.tol[name]} if par.tol[name] else {}),
+                    **({"g1": r["g1"]} if "g1" in r else {})})
     return out
 
 
@@ -404,8 +665,10 @@ def main() -> int:
     emit({"phase": "field", "shape": list(SHAPE), "seconds": time.perf_counter() - t0})
 
     art, blob, launches = main_path(x_np)
-    rows = kernel_rows(par, x_np, art, launches)
     del blob
+    gw_art, model, gw_launches = gwlz_path(x_np)
+    with torch.no_grad():  # the model's parameters must not build autograd graphs here
+        rows = kernel_rows(par, x_np, art, launches, gw_art, model, gw_launches)
     cpu_vs_card(x_np)
     golden()
 

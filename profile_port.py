@@ -12,7 +12,10 @@ lines with:
 * ``host``: the host functions with the most own time (cProfile) in one
   compress and one decompress;
 * ``device``: CUDA time per kernel and the device's busy share of the wall
-  time (torch.profiler) over one compress and one decompress.
+  time (torch.profiler) over one compress and one decompress;
+* ``gwlz``: the same for the enhancer path at its cell's model width
+  (G = 20, C = 9, batch 10): a window of 200 training steps (after 50
+  warm-up steps) and one enhanced full decode.
 """
 from __future__ import annotations
 
@@ -79,11 +82,82 @@ def main() -> int:
                and e.self_device_time_total > 0}
         busy_ms = sum(dev.values())
         top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
-        print(json.dumps({"device": name, "wall_s": wall,
-                          "busy_ms": busy_ms if dev else "not measured",
-                          "busy_share": busy_ms / (wall * 1e3) if dev else "not measured",
-                          "top_ms": dict(top)}), flush=True)
+        print(json.dumps(device_line(name, p, wall)), flush=True)
+    gwlz_profile(x, art)
     return 0
+
+
+def device_line(name, prof, wall) -> dict:
+    """Device-side events only (kernels, memcpy, memset): the host ops that
+    launched them report the same time again."""
+    import torch
+
+    dev = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0}
+    busy_ms = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+    return {"device": name, "wall_s": wall,
+            "busy_ms": busy_ms if dev else "not measured",
+            "busy_share": busy_ms / (wall * 1e3) if dev else "not measured",
+            "top_ms": dict(top)}
+
+
+def gwlz_profile(x, art, warm: int = 50, window: int = 200) -> None:
+    """Training steps and the enhanced decode under torch.profiler.  The
+    window trains from a fresh init on the cell's own slices, edges and
+    targets, exactly as ``train_enhancers`` sets them up; the decode uses
+    the model those steps leave (its cost does not depend on the weights)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import grouping, trainer
+    from repro_torch.core.enhancer import GroupEnhancers
+    from repro_torch.core.pipeline import GWLZ, serialize_model
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.sz import tiled
+
+    cfg = trainer.GWLZTrainConfig(epochs=1)
+    G = cfg.n_groups
+    recon, _ = tiled.decode_lanes(art, range(art.n_tiles))
+    xt = torch.as_tensor(x).cuda()
+    xs = trainer.tiles_as_slices(recon)
+    rs = trainer.tiles_as_slices(tiled.split_tiles(tiled.pad_to_tiles(xt, TILE), TILE) - recon)
+    edges = grouping.compute_edges(xs, G)
+    ids, counts = ops.group_hist_op(xs, edges)
+    rscale = torch.where(counts >= cfg.min_group_pixels, trainer._per_group_scale(rs, ids, G),
+                         0.0)
+    enh = GroupEnhancers(G, cfg.channels, device="cuda")
+    opt = adamw.init(enh.params())
+    order = torch.from_numpy(np.random.default_rng(cfg.seed).permutation(xs.shape[0])).cuda()
+    bs = cfg.batch_size
+
+    def steps(first, n):
+        for s in range(first, first + n):
+            idx = order[s * bs : (s + 1) * bs]
+            trainer.train_step(enh, opt, xs[idx], rs[idx], ids[idx], edges, rscale, cfg.lr,
+                               n_groups=G, residual_learning=True)
+
+    steps(0, warm)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as p:
+        _, wall = timed(lambda: steps(warm, window))
+    line = device_line(f"gwlz_train_{window}_steps", p, wall)
+    line["ms_per_step"] = 1e3 * wall / window
+    line["launches_per_step"] = sum(
+        e.count for e in p.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / window
+    print(json.dumps(line), flush=True)
+
+    model = trainer.GWLZModel(enhancers=enh, edges=edges, rscale=rscale, cfg=cfg)
+    art.extras["gwlz"] = serialize_model(model)
+    gw = GWLZ()
+    gw.decompress_tiled(art)  # warm-up: model parse and cache
+    with torch.profiler.profile(activities=acts) as p:
+        _, wall = timed(lambda: gw.decompress_tiled(art))
+    print(json.dumps(device_line("gwlz_decompress", p, wall)), flush=True)
+    del art.extras["gwlz"]
 
 
 if __name__ == "__main__":

@@ -29,14 +29,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("lorenzo_quant", "symbol_hist", "huffman_encode", "huffman_decode")
+SOURCES = ("lorenzo_quant", "symbol_hist", "huffman_encode", "huffman_decode",
+           "group_hist", "enhancer_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches of each kernel since the last reset_launches(); keys are the
 # wrapper names ops.py exposes (ops.LAUNCHES is this dict)
 LAUNCHES = {"lorenzo_quant_tiles": 0, "symbol_hist": 0, "huffman_encode": 0,
-            "huffman_decode": 0}
+            "huffman_decode": 0, "group_hist": 0, "enhancer_fused": 0}
 BUILD_LOG: dict[str, str] = {}  # source name -> nvcc/ptxas output of its build
 
 _LOCK = threading.Lock()

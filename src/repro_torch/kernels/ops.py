@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.group_hist import symbol_hist
+from repro_torch.kernels.enhancer_fused import enhancer_grouped
+from repro_torch.kernels.group_hist import group_hist, symbol_hist
 from repro_torch.kernels.huffman_decode import huffman_decode_probe
 from repro_torch.kernels.huffman_encode import huffman_encode_pack
 from repro_torch.kernels.lorenzo_quant import lorenzo_quant_tiles
@@ -85,3 +86,33 @@ def huffman_decode_op(words, offsets, counts, lut_count, lut_bits, lut_ids,
     if _on_cuda(words):
         return huffman_decode_probe(*args, chunk_size=chunk_size, k=k)
     return ref.huffman_decode_ref(*args, chunk_size=chunk_size, k=k)
+
+
+def group_hist_op(x: torch.Tensor, edges: torch.Tensor):
+    """float32 values (any shape, any size) and edges [G+1] -> (ids int32 of
+    ``x``'s shape, hist int32 [G]): ids = clip(#{j < G : edges[j] <= x} - 1,
+    0, G-1), the reference's ``group_hist`` without its 128-lane padding."""
+    if _on_cuda(x):
+        return group_hist(x, edges)
+    return ref.group_hist_ref(x, edges)
+
+
+def enhancer_grouped_op(x: torch.Tensor, ids: torch.Tensor | None, packed: torch.Tensor, *,
+                        mode: str, clamp_eb: float | None = None) -> torch.Tensor:
+    """G enhancers on slices [B, H, W], each pixel through its own group's
+    model (``ref.enhancer_grouped_ref``); counted as ``enhancer_fused``."""
+    if _on_cuda(x):
+        return enhancer_grouped(x, ids, packed, mode=mode, clamp_eb=clamp_eb)
+    return ref.enhancer_grouped_ref(x, ids, packed, mode=mode, clamp_eb=clamp_eb)
+
+
+def enhancer_fused_op(x: torch.Tensor, params: dict, bn_state: dict) -> torch.Tensor:
+    """One enhancer on x [B, H, W] -> predicted normalised residual [B, H, W]
+    (the TPU kernel's contract).  ``params``/``bn_state`` hold one model in
+    the reference layout (w1 [3, 3, 1, C], w2 [3, 3, C, 1], no G axis).  It
+    runs as the G = 1 call of the grouped kernel."""
+    args = (params["w1"], params["b1"], params["gamma"], params["beta"], bn_state["mean"],
+            bn_state["var"], params["w2"], params["b2"])
+    if _on_cuda(x):
+        return enhancer_grouped(x, None, ref.single_enhancer(*args), mode="pred")
+    return ref.enhancer_fused_ref(x, *args)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four CUDA kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 Each function computes exactly what its kernel computes, on any device: the
 dispatchers in ``kernels/ops.py`` run these for CPU tensors, and
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 _M32 = 0xFFFFFFFF
 
@@ -137,3 +138,120 @@ def huffman_decode_ref(words, offsets, counts, lut_count, lut_bits, lut_ids,
         pos = pos + torch.where(active, nb, 0)
         cur = cur + take
     return out.view(C, chunk_size)
+
+
+def group_hist_ref(x: torch.Tensor, edges: torch.Tensor):
+    """Group ids and their histogram: ids = clip(#{j < G : edges[j] <= x} - 1,
+    0, G-1) (int32, ``x``'s shape) and hist [G] int32.  For sorted edges and
+    finite x the ids equal ``searchsorted(edges, x, side="right") - 1``
+    clipped; a NaN lands in group 0."""
+    G = edges.shape[0] - 1
+    count = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for j in range(G):
+        count += x >= edges[j]
+    ids = (count - 1).clamp_(0, G - 1)
+    return ids, torch.bincount(ids.reshape(-1), minlength=G).to(torch.int32)
+
+
+# -- the group-wise enhancer -------------------------------------------------
+
+BN_EPS = 1e-5
+ENHANCE_MODES = {"pred": 0, "residual": 1, "direct": 2}
+
+
+def fold_bn(gamma, beta, mean, var):
+    """BN in inference form as one affine pair (scale, shift), folded as the
+    TPU kernel folds it (``enhancer_fused.py:73-74``)."""
+    inv = torch.rsqrt(var + BN_EPS) * gamma
+    return inv, beta - mean * inv
+
+
+def pack_enhancers(lo, scale, b2, rscale, w1, b1, bn_scale, bn_shift, w2) -> torch.Tensor:
+    """G enhancers as one float32 table [G, 4 + 21C]: per group lo, scale,
+    b2, rscale, w1 [9, C] (tap-major), b1 [C], bn_scale [C], bn_shift [C],
+    w2 [9, C] (tap-major, channel-minor: the reference's [3, 3, C, 1])."""
+    G = lo.shape[0]
+    cols = [t.reshape(G, -1).to(torch.float32)
+            for t in (lo, scale, b2, rscale, w1, b1, bn_scale, bn_shift, w2)]
+    return torch.cat(cols, dim=1).contiguous()
+
+
+def enhancer_channels(packed: torch.Tensor) -> int:
+    C, rem = divmod(packed.shape[1] - 4, 21)
+    if packed.ndim != 2 or C < 1 or rem:
+        raise ValueError(f"packed enhancers must be [G, 4 + 21C], got {tuple(packed.shape)}")
+    return C
+
+
+def enhancer_grouped_ref(x: torch.Tensor, ids: torch.Tensor | None, packed: torch.Tensor, *,
+                         mode: str, clamp_eb: float | None = None) -> torch.Tensor:
+    """Group-wise enhancer forward on slices x [B, H, W]: each pixel p of
+    group g = ids[p] (None: all 0; clipped to [0, G)) gets model g applied
+    to (x - lo_g) / scale_g masked to group g, then the ``mode`` epilogue
+    (``pred``; ``residual``: x + pred rscale_g, x where rscale_g = 0;
+    ``direct``: pred scale_g + lo_g) and an optional clip to x -+ clamp_eb.
+
+    This is the reference's all-G masked form, written with elementwise ops
+    only and in the CUDA kernel's loop order (channels outer, neighbours
+    inner, taps innermost), so each pixel's value is independent of the
+    batch and agrees with the kernel up to its fused multiply-adds."""
+    G, C = packed.shape[0], enhancer_channels(packed)
+    B, H, W = x.shape
+    lo, sc, b2, rs = (packed[:, i] for i in range(4))
+    w1 = packed[:, 4 : 4 + 9 * C].reshape(G, 9, C)
+    b1, bs, bt = (packed[:, 4 + 9 * C + i * C : 4 + 9 * C + (i + 1) * C] for i in range(3))
+    w2 = packed[:, 4 + 12 * C :].reshape(G, 9, C)
+    ids = (torch.zeros(x.shape, dtype=torch.int64, device=x.device) if ids is None
+           else ids.clamp(0, G - 1))
+    # neighbours q of the slice's pixels form an (H+2) x (W+2) domain; h is 0
+    # on its outer ring, which lies outside the slice
+    ring = F.pad(torch.ones((H, W), dtype=torch.bool, device=x.device), (1, 1, 1, 1))
+    out = torch.zeros_like(x)
+    for g in range(G):
+        m = ids == g
+        xin = torch.where(m, (x - lo[g]) / sc[g], 0.0)
+        xp = F.pad(xin, (2, 2, 2, 2))
+        pred = torch.zeros_like(x)
+        for c in range(C):
+            a = torch.zeros((B, H + 2, W + 2), dtype=x.dtype, device=x.device)
+            for k in range(9):
+                dy, dx = divmod(k, 3)
+                a = a + w1[g, k, c] * xp[:, dy : dy + H + 2, dx : dx + W + 2]
+            a = a + b1[g, c]
+            h = torch.where(ring, torch.relu(a * bs[g, c] + bt[g, c]), 0.0)
+            for d2 in range(9):
+                dy, dx = divmod(d2, 3)
+                pred = pred + w2[g, d2, c] * h[:, dy : dy + H, dx : dx + W]
+        pred = pred + b2[g]
+        if mode == "residual":
+            o = torch.where(rs[g] == 0, x, x + pred * rs[g])
+        elif mode == "direct":
+            o = pred * sc[g] + lo[g]
+        elif mode == "pred":
+            o = pred
+        else:
+            raise ValueError(f"unknown enhancer mode {mode!r}")
+        out = torch.where(m, o, out)
+    if clamp_eb is not None:
+        eb = float(np.float32(clamp_eb))
+        out = torch.minimum(torch.maximum(out, x - eb), x + eb)
+    return out
+
+
+def enhancer_fused_ref(x, w1, b1, gamma, beta, mean, var, w2, b2) -> torch.Tensor:
+    """One enhancer (reference layout: w1 [3, 3, 1, C], w2 [3, 3, C, 1],
+    b2 [1]) on x [B, H, W]: conv3x3 -> BN (inference) -> ReLU -> conv3x3,
+    zero SAME padding.  The G = 1 case of :func:`enhancer_grouped_ref`,
+    where (x - 0) / 1 is exact."""
+    return enhancer_grouped_ref(x, None, single_enhancer(w1, b1, gamma, beta, mean, var,
+                                                         w2, b2), mode="pred")
+
+
+def single_enhancer(w1, b1, gamma, beta, mean, var, w2, b2) -> torch.Tensor:
+    """Pack one enhancer as the G = 1 table, with lo 0, scale 1, rscale 1."""
+    C = w1.shape[-1]
+    one = torch.ones(1, dtype=torch.float32, device=w1.device)
+    bn_scale, bn_shift = fold_bn(gamma, beta, mean, var)
+    return pack_enhancers(one * 0, one, b2.reshape(1), one, w1.reshape(1, 9, C),
+                          b1.reshape(1, C), bn_scale.reshape(1, C), bn_shift.reshape(1, C),
+                          w2.reshape(1, 9, C))

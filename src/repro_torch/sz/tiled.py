@@ -448,11 +448,38 @@ def decode_lanes(artifact: TiledCompressed, lane_ids, *, with_mask: bool = False
     return recon, len(good)
 
 
-def decompress_tiled(artifact: TiledCompressed, *, device=None) -> torch.Tensor:
+def apply_tile_transform(tile_transform, recon: torch.Tensor, bad_mask: np.ndarray,
+                         fill_value: float) -> torch.Tensor:
+    """Run a per-tile transform (``[K, *tile] -> [K, *tile]``, e.g. the GWLZ
+    enhancer; None: identity) over decoded tiles in one call, then re-fill
+    quarantined tiles.  Eager PyTorch compiles nothing per batch size, so
+    nothing is bucketed; the transform must act on each tile alone, so
+    region and full decode stay bit-identical."""
+    if tile_transform is None:
+        return recon
+    return _refill_quarantined(tile_transform(recon), bad_mask, fill_value)
+
+
+def _refill_quarantined(recon: torch.Tensor, bad_mask: np.ndarray,
+                        fill_value: float) -> torch.Tensor:
+    """Re-assert the fill value on quarantined tile positions after a tile
+    transform ran: an enhancer must not fabricate data for a lane that
+    failed its checksum."""
+    if bad_mask.any():
+        recon[torch.as_tensor(np.nonzero(bad_mask)[0], device=recon.device)] = float(fill_value)
+    return recon
+
+
+def decompress_tiled(artifact: TiledCompressed, *, device=None,
+                     tile_transform=None) -> torch.Tensor:
     """Full decode: every lane, stitched and cropped to the original shape.
-    (A ``gwlz`` extras blob is ignored here, as in the reference: the
-    enhancer is applied one layer up.)"""
-    recon, _ = decode_lanes(artifact, range(artifact.n_tiles), device=device)
+
+    ``tile_transform([K, *tile]) -> [K, *tile]`` post-processes the decoded
+    tiles before stitching (the GWLZ pipeline enhances per tile through it;
+    a ``gwlz`` extras blob is otherwise ignored here, as in the reference)."""
+    recon, _, bad = decode_lanes(artifact, range(artifact.n_tiles), with_mask=True,
+                                 device=device)
+    recon = apply_tile_transform(tile_transform, recon, bad, artifact.fill_value)
     out = stitch_tiles(recon, artifact.grid)
     return out[tuple(slice(0, d) for d in artifact.shape)]
 
@@ -498,9 +525,11 @@ def assemble_region(recon: torch.Tensor, geom, tile: tuple[int, ...]) -> torch.T
     return block[crop]
 
 
-def decompress_region(artifact: TiledCompressed, roi, *, device=None) -> torch.Tensor:
-    """Decode only the tiles intersecting ``roi``; bit-identical to
-    ``decompress_tiled(artifact)[roi]``."""
+def decompress_region(artifact: TiledCompressed, roi, *, device=None,
+                      tile_transform=None) -> torch.Tensor:
+    """Decode only the tiles intersecting ``roi`` (and run ``tile_transform``
+    on exactly those); bit-identical to ``decompress_tiled(artifact)[roi]``."""
     ids, geom = region_tiles(artifact, roi)
-    recon, _ = decode_lanes(artifact, ids.tolist(), device=device)
+    recon, _, bad = decode_lanes(artifact, ids.tolist(), with_mask=True, device=device)
+    recon = apply_tile_transform(tile_transform, recon, bad, artifact.fill_value)
     return assemble_region(recon, geom, artifact.tile)

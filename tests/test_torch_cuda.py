@@ -70,4 +70,84 @@ def test_tiled_slice_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(full, recon)
     roi = [(3, 37), (5, 20), (0, 28)]
     assert torch.equal(decompress_region(card, roi), full[3:37, 5:20, 0:28])
-    assert all(v > 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
+    sz_kernels = ("lorenzo_quant_tiles", "symbol_hist", "huffman_encode", "huffman_decode")
+    assert all(ops.LAUNCHES[k] > 0 for k in sz_kernels), ops.LAUNCHES
+
+
+@pytest.mark.parametrize("G", [1, 20, 4096])
+def test_group_hist_kernel_matches_plain_version(cuda, G):
+    rng = np.random.default_rng(G)
+    edges = np.sort(rng.normal(0, 1, G + 1)).astype(np.float32)
+    if G > 2:
+        edges[2] = edges[1]  # a duplicate edge
+    x = np.concatenate([rng.normal(0, 1.5, 100003), edges, [edges[0] - 1, edges[-1] + 1,
+                                                            np.nan]]).astype(np.float32)
+    xt, et = torch.from_numpy(x).to(cuda), torch.from_numpy(edges).to(cuda)
+    ids, hist = ops.group_hist_op(xt.reshape(-1, 1), et)
+    want_ids, want_hist = ref.group_hist_ref(xt.reshape(-1, 1), et)
+    assert torch.equal(ids, want_ids) and torch.equal(hist, want_hist)
+    assert int(hist.sum()) == x.size
+
+
+def _random_enhancers(rng, G, C, device):
+    f = lambda *s: torch.from_numpy(rng.normal(0, 0.5, s).astype(np.float32)).to(device)
+    lo = torch.from_numpy(np.sort(rng.normal(0, 1, G)).astype(np.float32)).to(device)
+    scale = f(G).abs() + 0.1
+    rscale = f(G).abs()
+    rscale[0] = 0.0  # an inactive group
+    return ref.pack_enhancers(lo, scale, f(G), rscale, f(G, 9, C), f(G, C), f(G, C).abs(),
+                              f(G, C), f(G, 9, C))
+
+
+@pytest.mark.parametrize("mode,clamp", [("pred", None), ("residual", None),
+                                        ("residual", 0.05), ("direct", None)])
+def test_enhancer_grouped_kernel_matches_plain_version(cuda, mode, clamp):
+    rng = np.random.default_rng(3)
+    G, C = 6, 9
+    packed = _random_enhancers(rng, G, C, cuda)
+    x = torch.from_numpy(rng.normal(0, 1, (5, 45, 70)).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(rng.integers(0, G, x.shape).astype(np.int32)).to(cuda)
+    got = ops.enhancer_grouped_op(x, ids, packed, mode=mode, clamp_eb=clamp)
+    want = ref.enhancer_grouped_ref(x, ids, packed, mode=mode, clamp_eb=clamp)
+    # the kernel fuses multiply-adds the plain version rounds twice
+    assert float((got - want).abs().max()) <= 1e-5 * (1 + float(want.abs().max()))
+    # any subset of slices enhances to the same bits
+    assert torch.equal(ops.enhancer_grouped_op(x[2:4], ids[2:4], packed, mode=mode,
+                                               clamp_eb=clamp), got[2:4])
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 3, 100), (3, 17, 45), (2, 64, 64)])
+def test_enhancer_fused_kernel_matches_plain_version(cuda, shape):
+    rng = np.random.default_rng(sum(shape))
+    C = 9
+    f = lambda *s: torch.from_numpy(rng.normal(0, 0.5, s).astype(np.float32)).to(cuda)
+    params = {"w1": f(3, 3, 1, C), "b1": f(C), "gamma": f(C) + 1, "beta": f(C),
+              "w2": f(3, 3, C, 1), "b2": f(1)}
+    state = {"mean": f(C), "var": f(C).abs() + 0.5}
+    x = f(*shape)
+    got = ops.enhancer_fused_op(x, params, state)
+    want = ref.enhancer_fused_ref(x, *(params[k] for k in ("w1", "b1", "gamma", "beta")),
+                                  state["mean"], state["var"], params["w2"], params["b2"])
+    assert float((got - want).abs().max()) <= 1e-5 * (1 + float(want.abs().max()))
+
+
+def test_gwlz_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.core.pipeline import GWLZ, GWLZTrainConfig
+    from repro_torch.data import nyx_like_field
+    from repro_torch.sz import TiledCompressed
+
+    x = nyx_like_field((32, 32, 32), "temperature", seed=7)
+    gw = GWLZ(train_cfg=GWLZTrainConfig(n_groups=4, epochs=2))
+    ops.reset_launches()
+    art, stats = gw.compress_tiled(x, 16, rel_eb=1e-3)
+    assert ops.LAUNCHES["group_hist"] > 0 and ops.LAUNCHES["enhancer_fused"] > 0
+    assert stats.psnr_gwlz >= stats.psnr_sz - 1e-3
+    back = TiledCompressed.from_bytes(art.to_bytes())
+    full = gw.decompress_tiled(back)
+    roi = [(3, 20), (0, 17), (5, 32)]
+    assert torch.equal(gw.decompress_region(back, roi), full[3:20, 0:17, 5:32])
+    # the same model on the CPU's plain versions: the enhancer's float sums
+    # differ, then x + rhat may round to the next float
+    cpu = gw.decompress_tiled(back, device="cpu")
+    diff = (full.cpu() - cpu).abs()
+    assert bool((diff <= 1e-5 * art.eb_abs + torch.from_numpy(np.spacing(np.abs(x)))).all())

@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_no_reference_package():
 def test_port_imports_without_jax_in_a_fresh_interpreter():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch.sz, repro_torch.exec.writer, repro_torch.data\n"
-            "import repro_torch.kernels.ops\n"
+            "import repro_torch.kernels.ops, repro_torch.core.pipeline\n"
+            "import repro_torch.core.convert, repro_torch.optim.schedule\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -66,7 +67,7 @@ def test_entry_points_without_device_need_cuda():
 
 def test_no_try_around_kernel_launches():
     kernel_modules = ["ops.py", "lorenzo_quant.py", "group_hist.py", "huffman_encode.py",
-                      "huffman_decode.py", "_build.py"]
+                      "huffman_decode.py", "enhancer_fused.py", "_build.py"]
     for name in kernel_modules:
         tree = ast.parse((PORT / "kernels" / name).read_text())
         tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
@@ -97,4 +98,4 @@ def test_launch_counters_reset_and_count_only_launches():
     # CPU tensors run the plain versions: no kernel launched, none counted
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
     assert set(ops.LAUNCHES) == {"lorenzo_quant_tiles", "symbol_hist", "huffman_encode",
-                                 "huffman_decode"}
+                                 "huffman_decode", "group_hist", "enhancer_fused"}
