@@ -30,15 +30,23 @@ Phases (any failure raises and the script exits non-zero):
               before and read just after.  Checks: the decode's PSNR equals
               the compress-time psnr_gwlz, region == full crop bit for bit,
               psnr_gwlz >= psnr_sz - 1e-3, group_hist and enhancer_fused
-              launched;
-5. kernels -- each kernel again at its path's shapes: against its plain
-              version, then timed (see ``kernel_ms`` and ``events_ms``)
-              beside the plain version, a library call where one exists,
-              and the bound (the larger of bytes over 3.35 TB/s and
-              operations over 67 TFLOP/s);
-6. cpu     -- the 128^3 corner compressed on the card and on the CPU gives
+              launched.  On this field at rel_eb 1e-3 the quantile edges
+              collapse and only 2 of the 20 groups hold values;
+5. gwlz_all_groups -- the same path and checks on
+              nyx_like_field((512,)*3, "velocity_x", seed=0), where all 20
+              quantile groups hold values (checked), so every model trains
+              and the grouped kernel meets group borders everywhere;
+6. kernels -- each kernel again at its path's shapes: against its plain
+              version, then timed (see ``kernel_ms`` and
+              ``launch_events_ms``) beside the plain version, a library call
+              where one exists, and the bound (the larger of bytes over
+              3.35 TB/s and operations over 67 TFLOP/s; for the enhancer
+              the operations this run's group ids need, see
+              ``enhancer_flop``); group_hist and enhancer_fused on both
+              gwlz runs' decodes;
+7. cpu     -- the 128^3 corner compressed on the card and on the CPU gives
               identical GWTC bytes;
-7. golden  -- tests/golden/gwtc_v1.bin decodes on the card bit for bit.
+8. golden  -- tests/golden/gwtc_v1.bin decodes on the card bit for bit.
 
 Each phase prints a JSON line.  Then come the ``kernels`` line, the card's
 name and power limit as nvidia-smi reports them, and last
@@ -60,6 +68,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 / int32 rate
 SHAPE, TILE, REL_EB, BACKEND = (512, 512, 512), (64, 64, 64), 1e-3, "huffman+zlib"
 GWLZ_EPOCHS = 1  # the paper trains 300 epochs (~1M steps at 512^3): no smoke
+GWLZ_FIELDS = {"gwlz": "temperature", "gwlz_all_groups": "velocity_x"}  # phase -> field
 ROI = ((100, 228), (37, 101), (300, 364))
 KERNELS = {  # counter name -> (source, TPU kernel it replaces, __global__ name prefix)
     "lorenzo_quant_tiles": ("src/repro_torch/csrc/lorenzo_quant.cu",
@@ -126,31 +135,68 @@ def events_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def kernel_ms(fn, kernel: str, reps: int) -> tuple[float, str]:
+def launch_events_ms(fn, reps: int) -> tuple[float, str]:
+    """Device time of one launch: a pair of CUDA events around each of
+    ``reps`` calls, all queued behind a device-side sleep so no host gap
+    falls inside a pair; the mean interval.  For calls of one long launch,
+    where the wrapper's own work is a rounding error.  Returns (ms, method)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda._sleep(int(1.5 * reps * one_s * 2e9))  # cycles; the clock is <= 2 GHz
+    for a, b in pairs:
+        a.record()
+        fn()
+        b.record()
+    pairs[-1][1].synchronize()
+    return (sum(a.elapsed_time(b) for a, b in pairs) / reps,
+            f"events, 1 launch per interval, {reps} intervals")
+
+
+def kernel_ms(fn, kernel: str, reps: int, traces: int = 2) -> tuple[float, str]:
     """Device time of the kernel alone: its own intervals in a torch.profiler
-    trace of ``reps`` calls, over the launches it recorded, so the wrapper's host
-    work and output allocation are left out.  Where the profiler records no
-    device time it falls back to :func:`events_ms`.  Returns (ms, method)."""
+    trace of ``reps`` calls, over their launches, so the wrapper's host work
+    and output allocation are left out.  Each trace follows a warm-up step
+    whose events are dropped (the profiler's own start-up can lose the first
+    launches).  Only a trace that holds every launch counts: a trace that
+    lost launches is taken again, up to ``traces`` in all.  Where the profiler
+    records no device time it falls back to :func:`events_ms`.  Returns
+    (ms, method)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
+    lost = []
+    for _ in range(traces):
+        warm_then_trace = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=warm_then_trace) as prof:
             fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key
-            and e.self_device_time_total > 0]
-    count = sum(e.count for e in hits)
-    if count == 0:
-        return events_ms(fn, reps), "events"
-    # the trace may miss a launch (one of ten long enhancer launches was
-    # missing in one run): average over the launches it recorded
-    check(count <= reps, f"profiler saw {count} launches of {kernel}, more than {reps}")
-    return (sum(e.self_device_time_total for e in hits) / count / 1e3,
-            f"profiler {count}/{reps}")
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key
+                and e.self_device_time_total > 0]
+        count = sum(e.count for e in hits)
+        if count == 0:
+            return events_ms(fn, reps), "events"
+        if count == reps:
+            return (sum(e.self_device_time_total for e in hits) / count / 1e3,
+                    f"profiler {count}/{reps}"
+                    + (f" (earlier traces held {lost})" if lost else ""))
+        lost.append(f"{count}/{reps}")
+    raise AssertionError(f"every trace lost launches of {kernel}: {lost}")
 
 
 class Parity:
@@ -288,9 +334,9 @@ def edge_parity(par: Parity) -> None:
     order = ("w1", "b1", "gamma", "beta")
     for shape in [(2, 1, 1), (3, 3, 100), (2, 17, 45), (2, 64, 64)]:
         xt = f(*shape, scale=1.0)
-        got = enhancer_fused.enhancer_grouped(
-            xt, None, ref.single_enhancer(*(p1[k] for k in order), s1["mean"], s1["var"],
-                                          p1["w2"], p1["b2"]), mode="pred")
+        single = enhancer_fused.single_enhancer(*(p1[k] for k in order), s1["mean"],
+                                                s1["var"], p1["w2"], p1["b2"])
+        got = enhancer_fused.enhancer_grouped(xt, None, single, mode="pred")
         want = ref.enhancer_fused_ref(xt, *(p1[k] for k in order), s1["mean"], s1["var"],
                                       p1["w2"], p1["b2"])
         par.compare_float("enhancer_fused", f"G1_{shape[1]}x{shape[2]}", got, want,
@@ -299,7 +345,7 @@ def edge_parity(par: Parity) -> None:
     lo = torch.from_numpy(np.sort(rng.normal(0, 1, G)).astype(np.float32)).to(dev)
     rscale = f(G).abs() + 0.01
     rscale[3] = 0.0  # an inactive group
-    packed = ref.pack_enhancers(lo, f(G).abs() + 0.1, f(G), rscale, f(G, 9, C), f(G, C),
+    packed = enhancer_fused.pack_enhancers(lo, f(G).abs() + 0.1, f(G), rscale, f(G, 9, C), f(G, C),
                                 f(G, C).abs() + 0.5, f(G, C), f(G, 9, C))
     xt = f(4, 50, 70, scale=1.0)
     ids = torch.from_numpy(rng.integers(0, G, xt.shape).astype(np.int32)).to(dev)
@@ -361,7 +407,7 @@ def main_path(x_np):
     return art, blob, launches
 
 
-def gwlz_path(x_np):
+def gwlz_path(x_np, phase: str):
     """The enhancer path: GWLZ compress (SZ, training, calibration, gate,
     enhancement), container round trip, enhanced full and region decode."""
     import numpy as np
@@ -400,9 +446,13 @@ def gwlz_path(x_np):
           f"enhancement lost PSNR: {stats.psnr_sz} -> {stats.psnr_gwlz}")
     check(all(launches[k] > 0 for k in GWLZ_KERNELS), f"an enhancer kernel never ran: {launches}")
     model = deserialize_model(art.extras["gwlz"])
+    trained = int((np.asarray(stats.loss_history[-1]) > 0).sum())  # groups holding values
+    if phase == "gwlz_all_groups":
+        check(trained == cfg.n_groups, f"only {trained} of {cfg.n_groups} groups trained")
     sec = stats.seconds
     steps = (np.prod(SHAPE) // (TILE[1] * TILE[2])) // cfg.batch_size * cfg.epochs
-    emit({"phase": "gwlz", "shape": list(SHAPE), "tile": list(TILE), "rel_eb": REL_EB,
+    emit({"phase": phase, "field": GWLZ_FIELDS[phase], "shape": list(SHAPE),
+          "tile": list(TILE), "rel_eb": REL_EB,
           "n_groups": cfg.n_groups, "channels": cfg.channels, "batch_size": cfg.batch_size,
           "epochs": cfg.epochs, "steps": int(steps), "compress_s": t1 - t0,
           "seconds": sec, "train_ms_per_step": 1e3 * sec["train"] / steps,
@@ -411,17 +461,20 @@ def gwlz_path(x_np):
           "overhead": stats.overhead, "ratio_sz": stats.cr_sz, "ratio_gwlz": stats.cr_gwlz,
           "max_err_sz": stats.max_err_sz, "max_err_gwlz": stats.max_err_gwlz,
           "model_params": stats.n_model_params,
-          "active_groups": int((model.rscale > 0).sum()),
+          "trained_groups": trained, "active_groups": int((model.rscale > 0).sum()),
+          "distinct_edges": int(torch.unique(model.edges).numel()),
           "loss_epoch0": [round(float(v), 6) for v in stats.loss_history[0]],
           "launches": launches})
     return art, model, launches
 
 
-def time_row(rows, name, kern, plain, nbytes, nops, library=None, reps=200, plain_reps=20):
+def time_row(rows, name, kern, plain, nbytes, nops, library=None, reps=200, plain_reps=20,
+             timer=None):
     """Time kernel, plain version and library call; store the row with its
     bound (the larger of bytes over HBM rate and operations over the
-    float32 rate)."""
-    ms, ms_by = kernel_ms(kern, KERNELS[name][2], reps)
+    float32 rate).  ``timer`` times the kernel (default: the profiler)."""
+    ms, ms_by = (timer or functools.partial(kernel_ms, kernel=KERNELS[name][2]))(kern,
+                                                                               reps=reps)
     rows[name] = {
         "ms": ms, "ms_by": ms_by, "call_ms": events_ms(kern, reps),
         "plain_ms": events_ms(plain, plain_reps),
@@ -432,25 +485,51 @@ def time_row(rows, name, kern, plain, nbytes, nops, library=None, reps=200, plai
         "shape_note": None}
 
 
-def gwlz_kernel_rows(par: Parity, rows: dict, gw_art, model) -> None:
-    """Parity and timing of group_hist and enhancer_fused on the enhanced
-    full decode's own launch: every decoded tile as slices, the trained
-    model's edges and table."""
-    # the enhanced full decode's inputs: every decoded tile as slices
+def enhancer_flop(n: int, ids, live, C: int) -> tuple[int, float]:
+    """Operations the group-wise enhancer needs on ``n`` pixels of slices
+    whose groups are ``ids`` ([B, H, W] int32; None: all group 0), when only
+    the groups in ``live`` have an output: 2 flop for each FMA.  A hidden
+    value h_g(q) (9 taps x C channels of FMAs) is needed once for every
+    in-slice pixel q and group g that some pixel of q's 3x3 neighbourhood
+    belongs to; each output pixel of a live group adds the 9C FMAs of conv2.
+    Returns (flop, hidden values needed per pixel)."""
+    import torch
+    import torch.nn.functional as F
+
+    if ids is None:
+        n_h = n_out = n
+    else:
+        n_h = n_out = 0
+        for g in live:
+            m = (ids == g)[:, None].to(torch.float32)
+            n_out += int(torch.count_nonzero(m))
+            n_h += int(torch.count_nonzero(F.max_pool2d(m, 3, stride=1, padding=1)))
+            del m
+    return 2 * 9 * C * (n_h + n_out), n_h / n
+
+
+def gwlz_kernel_rows(par: Parity, gw_art, model, case: str, mode: str,
+                     with_g1: bool) -> dict:
+    """Parity and timing of group_hist and enhancer_fused on every decoded
+    tile as slices, with the trained model's edges and table: the enhanced
+    full decode's launch (``mode="residual"``) or the gate's (``"pred"``,
+    every group with an output).  ``with_g1`` adds the TPU kernel's own
+    G = 1 contract on the same slices."""
     import torch
 
     from repro_torch.core import enhancer
     from repro_torch.kernels import enhancer_fused, group_hist, ref
     from repro_torch.sz.tiled import decode_lanes
 
+    rows = {}
     row = functools.partial(time_row, rows)
-
     recon, _ = decode_lanes(gw_art, range(gw_art.n_tiles))
     xs = recon.reshape((-1,) + tuple(TILE[1:])).contiguous()
+    del recon
     edges = model.edges
     G = edges.numel() - 1
     ids, hist = group_hist.group_hist(xs, edges)
-    par.compare("group_hist", "gwlz_decode", (ids, hist), ref.group_hist_ref(xs, edges))
+    par.compare("group_hist", f"{case}_decode", (ids, hist), ref.group_hist_ref(xs, edges))
     bounds = edges[1:-1].contiguous()
     n = xs.numel()
     # bytes: read x, write ids (+ edges, hist); operations: G compares a value
@@ -458,46 +537,59 @@ def gwlz_kernel_rows(par: Parity, rows: dict, gw_art, model) -> None:
         lambda: ref.group_hist_ref(xs, edges), 8 * n + 8 * G + 4, G * n,
         library=lambda: torch.bincount(torch.bucketize(xs, bounds, right=True).reshape(-1),
                                        minlength=G), reps=20, plain_reps=2)
-    rows["group_hist"]["shape_note"] = f"x {list(xs.shape)} f32, {G} groups"
+    filled = int((hist > 0).sum())
+    rows["group_hist"]["shape_note"] = (f"x {list(xs.shape)} f32, {G} groups, "
+                                        f"{filled} holding values")
 
     packed = model.packed()
     C = enhancer.DEFAULT_CHANNELS
-    mode = "residual"
     # held in prediction units (the residual epilogue adds x, which would
     # swamp a relative tolerance); then the residual output to the same
     # bound scaled by rscale, plus the rounding of x + rhat
     got = enhancer_fused.enhancer_grouped(xs, ids, packed, mode="pred")
     want = ref.enhancer_grouped_ref(xs, ids, packed, mode="pred")
-    par.compare_float("enhancer_fused", "gwlz_decode_pred", got, want, ENHANCE_RTOL)
+    par.compare_float("enhancer_fused", f"{case}_decode_pred", got, want, ENHANCE_RTOL)
     tol = ENHANCE_RTOL * (1 + float(want.abs().max())) * float(model.rscale.max())
-    del want
-    got = enhancer_fused.enhancer_grouped(xs, ids, packed, mode=mode)
-    diff = (got - ref.enhancer_grouped_ref(xs, ids, packed, mode=mode)).abs()
-    check(bool((diff <= tol + torch.abs(xs) * 2**-23).all()),
-          f"enhancer_fused residual output off by {float(diff.max())} (tolerance {tol})")
-    del got, diff
-    # bytes: read x and ids, write out (+ the table); operations: 9 neighbours x
-    # C channels x 9 taps + 9C conv2 taps, one FMA (2 flop) each, a pixel
-    flop = 2 * (81 * C + 9 * C) * n
+    del got, want
+    if mode == "residual":
+        got = enhancer_fused.enhancer_grouped(xs, ids, packed, mode=mode)
+        diff = (got - ref.enhancer_grouped_ref(xs, ids, packed, mode=mode)).abs()
+        check(bool((diff <= tol + torch.abs(xs) * 2**-23).all()),
+              f"enhancer_fused [{case}] residual output off by {float(diff.max())} "
+              f"(tolerance {tol})")
+        del got, diff
+    # bytes: read x and ids, write out (+ the table); operations: what this
+    # run's ids need, where in residual mode only the groups with rscale > 0
+    # have an output (elsewhere out = x) and in pred mode every group has
+    live = [g for g in range(G) if mode == "pred" or float(model.rscale[g]) > 0]
+    flop, h_per_px = enhancer_flop(n, ids, live, C)
     row("enhancer_fused", lambda: enhancer_fused.enhancer_grouped(xs, ids, packed, mode=mode),
         lambda: ref.enhancer_grouped_ref(xs, ids, packed, mode=mode),
-        12 * n + 4 * packed.numel(), flop, reps=10, plain_reps=1)
-    rows["enhancer_fused"]["shape_note"] = (f"x/ids {list(xs.shape)}, G={G}, C={C}, "
-                                            f"{mode} (the enhanced full decode's launch)")
+        12 * n + 4 * packed.numel(), flop, reps=10, plain_reps=1, timer=launch_events_ms)
+    launch = "the enhanced full decode's" if mode == "residual" else "the gate's"
+    rows["enhancer_fused"]["shape_note"] = (
+        f"x/ids {list(xs.shape)}, G={G}, C={C}, {len(live)} groups with an output, "
+        f"{filled} holding values, {mode} ({launch} launch); {h_per_px:.4f} hidden values "
+        f"needed per pixel")
+    rows["enhancer_fused"]["flop"] = flop
+    if not with_g1:
+        return rows
+    del ids
     # the TPU kernel's own contract, G = 1, on the same slices scaled to
     # [0, 1] (its inputs are normalised); its library yardstick is one cuDNN
     # conv -> affine -> relu -> conv in float32
     xs = ((xs - xs.min()) / (xs.max() - xs.min())).contiguous()
     p1 = {k: v[0] for k, v in model.params.items()}
     s1 = {k: v[0] for k, v in model.bn_state.items()}
-    single = ref.single_enhancer(p1["w1"], p1["b1"], p1["gamma"], p1["beta"], s1["mean"],
-                                 s1["var"], p1["w2"], p1["b2"])
+    single = enhancer_fused.single_enhancer(p1["w1"], p1["b1"], p1["gamma"], p1["beta"],
+                                            s1["mean"], s1["var"], p1["w2"], p1["b2"])
     par.compare_float("enhancer_fused", "G1_gwlz_slices",
                       enhancer_fused.enhancer_grouped(xs, None, single, mode="pred"),
                       ref.enhancer_fused_ref(xs, p1["w1"], p1["b1"], p1["gamma"], p1["beta"],
                                              s1["mean"], s1["var"], p1["w2"], p1["b2"]),
                       ENHANCE_RTOL)
-    bn_scale, bn_shift = ref.fold_bn(p1["gamma"], p1["beta"], s1["mean"], s1["var"])
+    bn_scale, bn_shift = enhancer_fused.fold_bn(p1["gamma"], p1["beta"], s1["mean"],
+                                                s1["var"])
     wc1 = p1["w1"].permute(3, 2, 0, 1).contiguous()  # [C, 1, 3, 3]
     wc2 = p1["w2"].permute(3, 2, 0, 1).contiguous()  # [1, C, 3, 3]
 
@@ -509,10 +601,9 @@ def gwlz_kernel_rows(par: Parity, rows: dict, gw_art, model) -> None:
             h = torch.relu(h * bn_scale[None, :, None, None] + bn_shift[None, :, None, None])
             return F.conv2d(h, wc2, p1["b2"], padding=1)[:, 0]
 
-    g1_ms, g1_by = kernel_ms(lambda: enhancer_fused.enhancer_grouped(xs, None, single,
-                                                                     mode="pred"),
-                             KERNELS["enhancer_fused"][2], 10)
-    g1_flop = 2 * (81 * C + 9 * C) * n
+    g1_ms, g1_by = launch_events_ms(lambda: enhancer_fused.enhancer_grouped(
+        xs, None, single, mode="pred"), 10)
+    g1_flop, _ = enhancer_flop(n, None, [0], C)
     rows["enhancer_fused"]["g1"] = {
         "shape": f"x {list(xs.shape)}, G=1, C={C}", "ms": g1_ms, "ms_by": g1_by,
         "plain_ms": events_ms(lambda: ref.enhancer_fused_ref(
@@ -521,12 +612,14 @@ def gwlz_kernel_rows(par: Parity, rows: dict, gw_art, model) -> None:
         "library_ms": events_ms(library_g1, 10),
         "bound_ms": max(8 * n / HBM_BYTES_PER_S, g1_flop / FP32_OPS_PER_S) * 1e3,
         "bound_by": "operations" if g1_flop / FP32_OPS_PER_S > 8 * n / HBM_BYTES_PER_S
-        else "bytes"}
+        else "bytes", "flop": g1_flop}
+    return rows
 
 
-
-def kernel_rows(par: Parity, x_np, art, launches, gw_art, model, gw_launches) -> list[dict]:
-    """Parity and timing of each kernel on the main path's own shapes."""
+def kernel_rows(par: Parity, x_np, art, launches, gw: dict) -> list[dict]:
+    """Parity and timing of each kernel on the main path's own shapes; the
+    enhancer's kernels on both gwlz runs (``gw``: phase -> (art, model,
+    launches)), the second as each row's ``all_groups``."""
     import numpy as np
     import torch
 
@@ -589,12 +682,20 @@ def kernel_rows(par: Parity, x_np, art, launches, gw_art, model, gw_launches) ->
     rows["huffman_decode"]["shape_note"] = (f"{args[0].numel()} stream words, "
                                             f"ids [{ids.shape[0]}, {ids.shape[1]}]")
 
-    gwlz_kernel_rows(par, rows, gw_art, model)
+    gw_art, model, gw_launches = gw["gwlz"]
+    rows.update(gwlz_kernel_rows(par, gw_art, model, "gwlz", "residual", with_g1=True))
+    all_art, all_model, all_launches = gw["gwlz_all_groups"]
+    all_rows = gwlz_kernel_rows(par, all_art, all_model, "gwlz_all_groups", "pred",
+                                with_g1=False)
 
     out = []
     for name, (source, replaces, _) in KERNELS.items():
         r = rows[name]
         path_launches = gw_launches if name in GWLZ_KERNELS else launches
+        if name in GWLZ_KERNELS:
+            a = all_rows[name]
+            r["all_groups"] = {"launches": all_launches[name], "shape": a.pop("shape_note"),
+                               **a}
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": path_launches[name], "max_abs_err": par.err[name],
                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -603,7 +704,7 @@ def kernel_rows(par: Parity, x_np, art, launches, gw_art, model, gw_launches) ->
                     "launches_path": "gwlz" if name in GWLZ_KERNELS else "main",
                     "launches_gwlz": gw_launches[name],
                     **({"tolerance": par.tol[name]} if par.tol[name] else {}),
-                    **({"g1": r["g1"]} if "g1" in r else {})})
+                    **{k: r[k] for k in ("flop", "g1", "all_groups") if k in r}})
     return out
 
 
@@ -662,13 +763,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     x_np = nyx_like_field(SHAPE, "temperature", seed=0)
-    emit({"phase": "field", "shape": list(SHAPE), "seconds": time.perf_counter() - t0})
+    emit({"phase": "field", "field": "temperature", "shape": list(SHAPE),
+          "seconds": time.perf_counter() - t0})
 
     art, blob, launches = main_path(x_np)
     del blob
-    gw_art, model, gw_launches = gwlz_path(x_np)
+    gw = {"gwlz": gwlz_path(x_np, "gwlz")}
+    t0 = time.perf_counter()
+    vx = nyx_like_field(SHAPE, GWLZ_FIELDS["gwlz_all_groups"], seed=0)
+    emit({"phase": "field", "field": GWLZ_FIELDS["gwlz_all_groups"], "shape": list(SHAPE),
+          "seconds": time.perf_counter() - t0})
+    gw["gwlz_all_groups"] = gwlz_path(vx, "gwlz_all_groups")
+    del vx
     with torch.no_grad():  # the model's parameters must not build autograd graphs here
-        rows = kernel_rows(par, x_np, art, launches, gw_art, model, gw_launches)
+        rows = kernel_rows(par, x_np, art, launches, gw)
     cpu_vs_card(x_np)
     golden()
 

@@ -136,16 +136,35 @@ class GWLZ:
     def _clamp(self, artifact) -> float | None:
         return artifact.eb_abs if self.clamp_to_bound else None
 
-    def _finish_compress(self, x, artifact, recon, *, train_fn, enhance_fn, callback):
-        """Fit enhancers on (recon, residual), attach the serialized model to
-        the artifact's extras, enhance the training volume, and report the
-        paper's metrics."""
+    def compress_tiled(self, x, tile=(64, 64, 64), *, rel_eb: float | None = None,
+                       abs_eb: float | None = None, predictor: str = "lorenzo",
+                       callback=None, device=None):
+        """Tile-grid GWLZ: tiled SZ compress, then ONE batched enhancer
+        training pass over the per-tile slice stack; the model rides in the
+        GWTC extras.  Returns (TiledCompressed, GWLZStats)."""
+        device = resolve_device(device)
+        x = torch.as_tensor(x, dtype=torch.float32).to(device)
+        if x.ndim != 3:
+            raise ValueError("tiled GWLZ needs a 3D volume (enhancers are 2D CNNs)")
+        t0 = clock(device)
+        artifact, recon = tiled.compress_tiled(x, tile, rel_eb=rel_eb, abs_eb=abs_eb,
+                                               predictor=predictor, device=device)
         sz_bytes = artifact.nbytes
-        model, history = train_fn(recon, x - recon, callback)
+        t1 = clock(device)
+        # Train on the decoder's own tiles: the exact arrays decompression
+        # will feed the enhancer.
+        recon_tiles, _ = tiled.decode_lanes(artifact, range(artifact.n_tiles), device=device)
+        resid_tiles = tiled.split_tiles(tiled.pad_to_tiles(x, artifact.tile),
+                                        artifact.tile) - recon_tiles
+        t2 = clock(device)
+        model, history = train_enhancers_tiled(recon_tiles, resid_tiles, self.train_cfg,
+                                               callback=callback, device=device)
         artifact.extras["gwlz"] = serialize_model(model)
-        t0 = clock(x.device)
-        enhanced = enhance_fn(recon, model)
-        seconds = {**history.get("seconds", {}), "enhance": clock(x.device) - t0}
+        t3 = clock(device)
+        out = enhance_tiles(recon_tiles, model, clamp_eb=self._clamp(artifact))
+        enhanced = tiled.stitch_tiles(out, artifact.grid)[tuple(slice(0, d) for d in x.shape)]
+        seconds = {"sz": t1 - t0, "decode": t2 - t1, **history["seconds"],
+                   "enhance": clock(device) - t3}
         total_bytes = artifact.nbytes
         stats = GWLZStats(
             psnr_sz=float(metrics.psnr(x, recon)),
@@ -161,41 +180,6 @@ class GWLZ:
             seconds=seconds,
         )
         return artifact, stats
-
-    def compress_tiled(self, x, tile=(64, 64, 64), *, rel_eb: float | None = None,
-                       abs_eb: float | None = None, predictor: str = "lorenzo",
-                       callback=None, device=None):
-        """Tile-grid GWLZ: tiled SZ compress, then ONE batched enhancer
-        training pass over the per-tile slice stack; the model rides in the
-        GWTC extras.  Returns (TiledCompressed, GWLZStats)."""
-        device = resolve_device(device)
-        x = torch.as_tensor(x, dtype=torch.float32).to(device)
-        if x.ndim != 3:
-            raise ValueError("tiled GWLZ needs a 3D volume (enhancers are 2D CNNs)")
-        t = [clock(device)]
-        artifact, recon = tiled.compress_tiled(x, tile, rel_eb=rel_eb, abs_eb=abs_eb,
-                                               predictor=predictor, device=device)
-        t.append(clock(device))
-        # Train on the decoder's own tiles: the exact arrays decompression
-        # will feed the enhancer.
-        recon_tiles, _ = tiled.decode_lanes(artifact, range(artifact.n_tiles), device=device)
-        resid_tiles = tiled.split_tiles(tiled.pad_to_tiles(x, artifact.tile),
-                                        artifact.tile) - recon_tiles
-        t.append(clock(device))
-
-        def train_fn(_recon, _residual, cb):
-            model, history = train_enhancers_tiled(recon_tiles, resid_tiles, self.train_cfg,
-                                                   callback=cb, device=device)
-            history["seconds"] = {"sz": t[1] - t[0], "decode": t[2] - t[1],
-                                  **history["seconds"]}
-            return model, history
-
-        def enhance_fn(_recon, model):
-            out = enhance_tiles(recon_tiles, model, clamp_eb=self._clamp(artifact))
-            return tiled.stitch_tiles(out, artifact.grid)[tuple(slice(0, d) for d in x.shape)]
-
-        return self._finish_compress(x, artifact, recon, train_fn=train_fn,
-                                     enhance_fn=enhance_fn, callback=callback)
 
     def _tile_enhancer(self, artifact, device):
         """Per-tile enhancement transform for decoded tile batches, or None

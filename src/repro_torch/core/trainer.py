@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core import grouping
 from repro_torch.core.enhancer import GroupEnhancers, fp32_convs, hidden
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import enhancer_fused, ops
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.optim import AdamWConfig, adamw
 from repro_torch.optim.schedule import step_decay
@@ -84,9 +84,9 @@ class GWLZModel:
 def _packed(enh: GroupEnhancers, edges: torch.Tensor, rscale: torch.Tensor) -> torch.Tensor:
     G, C = enh.n_groups, enh.channels
     lo, scale = grouping.group_normalizers(edges)
-    bn_scale, bn_shift = ref.fold_bn(enh.gamma, enh.beta, enh.mean, enh.var)
-    return ref.pack_enhancers(lo, scale, enh.b2, rscale, enh.w1.reshape(G, 9, C), enh.b1,
-                              bn_scale, bn_shift, enh.w2.reshape(G, 9, C))
+    bn_scale, bn_shift = enhancer_fused.fold_bn(enh.gamma, enh.beta, enh.mean, enh.var)
+    return enhancer_fused.pack_enhancers(lo, scale, enh.b2, rscale, enh.w1.reshape(G, 9, C),
+                                         enh.b1, bn_scale, bn_shift, enh.w2.reshape(G, 9, C))
 
 
 def clock(device: torch.device) -> float:

@@ -19,10 +19,13 @@
 // input h is 0 outside the slice.  Inside the slice h is the model's hidden
 // value whatever the neighbour's group, as in the reference.
 //
-// What bounds it on the H100: operations.  Per pixel 9 neighbours x C
-// channels x (9 taps + BN) + 9C for conv2: ~891 FMA at C = 9, i.e. ~1,620
-// flop counting an FMA as two; 2^27 pixels take ~3.2 ms at 67 TFLOP/s,
-// against ~0.48 ms for the bytes (x, ids, out).
+// What bounds it on the H100: operations.  The function needs each hidden
+// value h_g(q) (9C FMAs) once per pixel q and group g of q's 3x3
+// neighbourhood, plus 9C FMAs of conv2 a pixel: 162 FMA a pixel at C = 9
+// where a neighbourhood is one group, 2^27 pixels in ~0.65 ms at 67 TFLOP/s
+// (the bytes, x, ids and out, take ~0.48 ms).  This kernel recomputes each
+// h for each of the 9 pixels that read it, 9 x 9C + 9C = 810 FMA a pixel:
+// five times that work.
 //
 // Design: one block per (slice, 32x32 output block), 32x8 threads, four
 // output rows a thread.  The block stages x and ids for its block plus a

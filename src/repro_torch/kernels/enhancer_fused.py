@@ -3,7 +3,8 @@ replaces ``repro/kernels/enhancer_fused.py::enhancer_fused``).  Plain
 version: ``ref.enhancer_grouped_ref``.
 
 The G enhancers travel as one packed float32 table ``[G, 4 + 21C]`` (see
-``ref.pack_enhancers``), which the kernel copies into shared memory."""
+:func:`pack_enhancers`), which the kernel copies into shared memory; this
+module owns that layout, and the plain version reads it from here."""
 from __future__ import annotations
 
 import ctypes
@@ -11,13 +12,49 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ENHANCE_MODES, enhancer_channels
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p)
 SMEM_BYTES = 227 * 1024  # an H100 block's shared memory
 _WINDOW_BYTES = 2 * 36 * 36 * 4  # x and ids of a 32x32 block with its 2-cell halo
+
+BN_EPS = 1e-5
+ENHANCE_MODES = {"pred": 0, "residual": 1, "direct": 2}
+
+
+def fold_bn(gamma, beta, mean, var):
+    """BN in inference form as one affine pair (scale, shift), folded as the
+    TPU kernel folds it (``enhancer_fused.py:73-74``)."""
+    inv = torch.rsqrt(var + BN_EPS) * gamma
+    return inv, beta - mean * inv
+
+
+def pack_enhancers(lo, scale, b2, rscale, w1, b1, bn_scale, bn_shift, w2) -> torch.Tensor:
+    """G enhancers as one float32 table [G, 4 + 21C]: per group lo, scale,
+    b2, rscale, w1 [9, C] (tap-major), b1 [C], bn_scale [C], bn_shift [C],
+    w2 [9, C] (tap-major, channel-minor: the reference's [3, 3, C, 1])."""
+    G = lo.shape[0]
+    cols = [t.reshape(G, -1).to(torch.float32)
+            for t in (lo, scale, b2, rscale, w1, b1, bn_scale, bn_shift, w2)]
+    return torch.cat(cols, dim=1).contiguous()
+
+
+def enhancer_channels(packed: torch.Tensor) -> int:
+    C, rem = divmod(packed.shape[1] - 4, 21)
+    if packed.ndim != 2 or C < 1 or rem:
+        raise ValueError(f"packed enhancers must be [G, 4 + 21C], got {tuple(packed.shape)}")
+    return C
+
+
+def single_enhancer(w1, b1, gamma, beta, mean, var, w2, b2) -> torch.Tensor:
+    """Pack one enhancer as the G = 1 table, with lo 0, scale 1, rscale 1."""
+    C = w1.shape[-1]
+    one = torch.ones(1, dtype=torch.float32, device=w1.device)
+    bn_scale, bn_shift = fold_bn(gamma, beta, mean, var)
+    return pack_enhancers(one * 0, one, b2.reshape(1), one, w1.reshape(1, 9, C),
+                          b1.reshape(1, C), bn_scale.reshape(1, C), bn_shift.reshape(1, C),
+                          w2.reshape(1, 9, C))
 
 
 def enhancer_grouped(x: torch.Tensor, ids: torch.Tensor | None, packed: torch.Tensor, *,

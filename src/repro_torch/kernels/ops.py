@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.enhancer_fused import enhancer_grouped
+from repro_torch.kernels.enhancer_fused import enhancer_grouped, single_enhancer
 from repro_torch.kernels.group_hist import group_hist, symbol_hist
 from repro_torch.kernels.huffman_decode import huffman_decode_probe
 from repro_torch.kernels.huffman_encode import huffman_encode_pack
@@ -114,5 +114,5 @@ def enhancer_fused_op(x: torch.Tensor, params: dict, bn_state: dict) -> torch.Te
     args = (params["w1"], params["b1"], params["gamma"], params["beta"], bn_state["mean"],
             bn_state["var"], params["w2"], params["b2"])
     if _on_cuda(x):
-        return enhancer_grouped(x, None, ref.single_enhancer(*args), mode="pred")
+        return enhancer_grouped(x, None, single_enhancer(*args), mode="pred")
     return ref.enhancer_fused_ref(x, *args)

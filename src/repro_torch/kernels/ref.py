@@ -15,6 +15,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.enhancer_fused import (  # the kernel owns its table layout
+    enhancer_channels,
+    single_enhancer,
+)
+
 _M32 = 0xFFFFFFFF
 
 
@@ -155,34 +160,6 @@ def group_hist_ref(x: torch.Tensor, edges: torch.Tensor):
 
 # -- the group-wise enhancer -------------------------------------------------
 
-BN_EPS = 1e-5
-ENHANCE_MODES = {"pred": 0, "residual": 1, "direct": 2}
-
-
-def fold_bn(gamma, beta, mean, var):
-    """BN in inference form as one affine pair (scale, shift), folded as the
-    TPU kernel folds it (``enhancer_fused.py:73-74``)."""
-    inv = torch.rsqrt(var + BN_EPS) * gamma
-    return inv, beta - mean * inv
-
-
-def pack_enhancers(lo, scale, b2, rscale, w1, b1, bn_scale, bn_shift, w2) -> torch.Tensor:
-    """G enhancers as one float32 table [G, 4 + 21C]: per group lo, scale,
-    b2, rscale, w1 [9, C] (tap-major), b1 [C], bn_scale [C], bn_shift [C],
-    w2 [9, C] (tap-major, channel-minor: the reference's [3, 3, C, 1])."""
-    G = lo.shape[0]
-    cols = [t.reshape(G, -1).to(torch.float32)
-            for t in (lo, scale, b2, rscale, w1, b1, bn_scale, bn_shift, w2)]
-    return torch.cat(cols, dim=1).contiguous()
-
-
-def enhancer_channels(packed: torch.Tensor) -> int:
-    C, rem = divmod(packed.shape[1] - 4, 21)
-    if packed.ndim != 2 or C < 1 or rem:
-        raise ValueError(f"packed enhancers must be [G, 4 + 21C], got {tuple(packed.shape)}")
-    return C
-
-
 def enhancer_grouped_ref(x: torch.Tensor, ids: torch.Tensor | None, packed: torch.Tensor, *,
                          mode: str, clamp_eb: float | None = None) -> torch.Tensor:
     """Group-wise enhancer forward on slices x [B, H, W]: each pixel p of
@@ -245,13 +222,3 @@ def enhancer_fused_ref(x, w1, b1, gamma, beta, mean, var, w2, b2) -> torch.Tenso
     where (x - 0) / 1 is exact."""
     return enhancer_grouped_ref(x, None, single_enhancer(w1, b1, gamma, beta, mean, var,
                                                          w2, b2), mode="pred")
-
-
-def single_enhancer(w1, b1, gamma, beta, mean, var, w2, b2) -> torch.Tensor:
-    """Pack one enhancer as the G = 1 table, with lo 0, scale 1, rscale 1."""
-    C = w1.shape[-1]
-    one = torch.ones(1, dtype=torch.float32, device=w1.device)
-    bn_scale, bn_shift = fold_bn(gamma, beta, mean, var)
-    return pack_enhancers(one * 0, one, b2.reshape(1), one, w1.reshape(1, 9, C),
-                          b1.reshape(1, C), bn_scale.reshape(1, C), bn_shift.reshape(1, C),
-                          w2.reshape(1, 9, C))

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import enhancer_fused, ops, ref
 from repro_torch.sz import compress_tiled, decompress_region, decompress_tiled, entropy
 
 
@@ -95,8 +95,8 @@ def _random_enhancers(rng, G, C, device):
     scale = f(G).abs() + 0.1
     rscale = f(G).abs()
     rscale[0] = 0.0  # an inactive group
-    return ref.pack_enhancers(lo, scale, f(G), rscale, f(G, 9, C), f(G, C), f(G, C).abs(),
-                              f(G, C), f(G, 9, C))
+    return enhancer_fused.pack_enhancers(lo, scale, f(G), rscale, f(G, 9, C), f(G, C),
+                                         f(G, C).abs(), f(G, C), f(G, 9, C))
 
 
 @pytest.mark.parametrize("mode,clamp", [("pred", None), ("residual", None),

@@ -20,7 +20,7 @@ from repro.core import trainer as RT
 from repro.kernels import ops as RO
 from repro_torch.core import convert, grouping
 from repro_torch.core import trainer as PT
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import enhancer_fused, ops, ref
 
 G, C = 4, 9
 
@@ -121,7 +121,7 @@ def test_packed_table_layout(weights):
     model = convert.model_from_arrays(params, state, edges, np.arange(G, dtype=np.float32),
                                       device="cpu")
     packed = model.packed()
-    assert packed.shape == (G, 4 + 21 * C) and ref.enhancer_channels(packed) == C
+    assert packed.shape == (G, 4 + 21 * C) and enhancer_fused.enhancer_channels(packed) == C
     np.testing.assert_array_equal(packed[:, 0].numpy(), edges[:-1])
     np.testing.assert_array_equal(packed[:, 3].numpy(), np.arange(G, dtype=np.float32))
     np.testing.assert_array_equal(packed[:, 4 : 4 + 9 * C].numpy(),
