@@ -5,15 +5,17 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build   -- compile the six CUDA kernels from ``src/repro_torch/csrc``
-              (one nvcc per source, all at once) and time it;
+1. build   -- compile the six CUDA sources (seven kernels) from
+              ``src/repro_torch/csrc`` (one nvcc per source, all at once)
+              and time it;
 2. edges   -- each kernel against its plain PyTorch version on the card on
               edge cases; bit for bit (tolerance 0) for the integer kernels:
               .5 ties, negatives, |q| near 2**25, ragged tiles and ranks
-              1-2, spans above 4096, short last chunks, codes longer than
-              the 12-bit LUT up to the 32-bit maximum codeword, values on /
-              below / above the group edges, duplicate edges, G = 1, 20 and
-              the largest G; for ``enhancer_fused`` within
+              0-2, z across the volume kernel's 32-plane segments, spans
+              above 4096, short last chunks, codes longer than the 12-bit
+              LUT up to the 32-bit maximum codeword, values on / below /
+              above the group edges, duplicate edges, G = 1, 20 and the
+              largest G; for ``enhancer_fused`` within
               |diff| <= 1e-5 (1 + max|plain|) (the kernel fuses multiply-adds
               the plain version rounds twice): G = 1 on 1x1 .. 64x64 slices,
               ids changing inside the halo, an inactive group, the clamp,
@@ -22,31 +24,50 @@ Phases (any failure raises and the script exits non-zero):
               "temperature", seed=0), tile 64^3, rel_eb 1e-3, huffman+zlib,
               through compress_tiled -> to_bytes -> from_bytes ->
               decompress_tiled and decompress_region; launch counters are
-              zeroed just before and read just after;
+              zeroed just before and read just after (as in every phase
+              below);
 4. gwlz    -- the GWLZ enhancer path on the same field at the paper's model
               width (G = 20, C = 9, batch 10; 1 epoch, cut from 300):
               GWLZ.compress_tiled -> to_bytes -> from_bytes -> enhanced
-              decompress_tiled and decompress_region; counters zeroed just
-              before and read just after.  Checks: the decode's PSNR equals
-              the compress-time psnr_gwlz, region == full crop bit for bit,
-              psnr_gwlz >= psnr_sz - 1e-3, group_hist and enhancer_fused
-              launched.  On this field at rel_eb 1e-3 the quantile edges
-              collapse and only 2 of the 20 groups hold values;
+              decompress_tiled and decompress_region.  Checks: the decode's
+              PSNR equals the compress-time psnr_gwlz, region == full crop
+              bit for bit, psnr_gwlz >= psnr_sz - 1e-3, group_hist and
+              enhancer_fused launched.  On this field at rel_eb 1e-3 the
+              quantile edges collapse and only 2 of the 20 groups hold values;
 5. gwlz_all_groups -- the same path and checks on
               nyx_like_field((512,)*3, "velocity_x", seed=0), where all 20
               quantile groups hold values (checked), so every model trains
               and the grouped kernel meets group borders everywhere;
-6. kernels -- each kernel again at its path's shapes: against its plain
+6. szjx    -- the monolithic SZ path through the façade on the temperature
+              field: api.compress(predictor="lorenzo", not tiled) -> api.save
+              -> api.open -> np.asarray(vol) and vol[the main ROI].  Checks:
+              max error <= eb (1 + 1e-6), decode == compress-time
+              reconstruction and slice == full crop bit for bit; the 128^3
+              corner's SZJX bytes equal on the card and the CPU;
+              lorenzo_quant, huffman_encode and huffman_decode launched;
+7. gwlz_mono -- the paper's configuration: api.compress(predictor="lorenzo",
+              enhance=GWLZTrainConfig(epochs=5)) on the same field, the
+              enhancers trained on 512 full 512x512 slices (51 steps an
+              epoch; 5 epochs, cut from 300), then save, open, full decode
+              and the ROI.  Checks as for gwlz;
+8. cli     -- ``python -m repro_torch.cli`` in subprocesses on
+              synthetic:temperature:64, tiled (tile 16) and monolithic,
+              Lorenzo: compress -> info -> region -> decompress -> verify;
+              the ROI equals the full crop, verify exits 0, and 1 on a copy
+              with one byte of one lane flipped;
+9. kernels -- each kernel again at its path's shapes: against its plain
               version, then timed (see ``kernel_ms`` and
               ``launch_events_ms``) beside the plain version, a library call
               where one exists, and the bound (the larger of bytes over
               3.35 TB/s and operations over 67 TFLOP/s; for the enhancer
               the operations this run's group ids need, see
               ``enhancer_flop``); group_hist and enhancer_fused on both
-              gwlz runs' decodes;
-7. cpu     -- the 128^3 corner compressed on the card and on the CPU gives
+              gwlz runs' decodes; huffman_decode and enhancer_fused also at
+              the monolithic shapes (``mono``);
+10. cpu    -- the 128^3 corner compressed on the card and on the CPU gives
               identical GWTC bytes;
-8. golden  -- tests/golden/gwtc_v1.bin decodes on the card bit for bit.
+11. golden -- tests/golden/gwtc_v1.bin and szjx_lorenzo.bin decode on the
+              card bit for bit.
 
 Each phase prints a JSON line.  Then come the ``kernels`` line, the card's
 name and power limit as nvidia-smi reports them, and last
@@ -56,8 +77,10 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -68,12 +91,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 / int32 rate
 SHAPE, TILE, REL_EB, BACKEND = (512, 512, 512), (64, 64, 64), 1e-3, "huffman+zlib"
 GWLZ_EPOCHS = 1  # the paper trains 300 epochs (~1M steps at 512^3): no smoke
+MONO_EPOCHS = 5  # gwlz_mono: 51 steps an epoch on 512 slices of 512x512
 GWLZ_FIELDS = {"gwlz": "temperature", "gwlz_all_groups": "velocity_x"}  # phase -> field
 ROI = ((100, 228), (37, 101), (300, 364))
 KERNELS = {  # counter name -> (source, TPU kernel it replaces, __global__ name prefix)
     "lorenzo_quant_tiles": ("src/repro_torch/csrc/lorenzo_quant.cu",
                             "src/repro/kernels/lorenzo_quant.py:87",
                             "lorenzo_quant_tiles_kernel"),
+    "lorenzo_quant": ("src/repro_torch/csrc/lorenzo_quant.cu",
+                      "src/repro/kernels/lorenzo_quant.py:55", "lorenzo_quant_volume_kernel"),
     "symbol_hist": ("src/repro_torch/csrc/symbol_hist.cu",
                     "src/repro/kernels/group_hist.py:53", "symbol_hist_"),
     "huffman_encode": ("src/repro_torch/csrc/huffman_encode.cu",
@@ -88,6 +114,10 @@ KERNELS = {  # counter name -> (source, TPU kernel it replaces, __global__ name 
                        "src/repro/kernels/enhancer_fused.py:68", "enhancer_grouped_kernel"),
 }
 GWLZ_KERNELS = ("group_hist", "enhancer_fused")  # counted on the gwlz path
+SZJX_KERNELS = ("lorenzo_quant", "huffman_encode", "huffman_decode")  # needed on szjx
+# the path whose launches each kernel's row reports
+LAUNCH_PATH = {**{k: "main" for k in KERNELS}, "lorenzo_quant": "szjx",
+               **{k: "gwlz" for k in GWLZ_KERNELS}}
 ENHANCE_RTOL = 1e-5  # |kernel - plain| <= ENHANCE_RTOL * (1 + max|plain|)
 
 
@@ -279,6 +309,20 @@ def edge_parity(par: Parity) -> None:
         xt = torch.from_numpy(x).to(dev)
         par.compare("lorenzo_quant_tiles", case, lorenzo_quant.lorenzo_quant_tiles(xt, eb),
                     ref.lorenzo_quant_tiles_ref(xt, eb))
+    # the whole-volume kernel: z across its 32-plane segments, ragged windows,
+    # ranks 0-2
+    for case, x in {
+        "ties_negatives_ragged": ties[0],
+        "q_near_2^25": cases["q_near_2^25"][0],
+        "z33_segments": rng.normal(0, 100, (33, 17, 45)).astype(np.float32),
+        "z64_x70": rng.normal(0, 100, (64, 9, 70)).astype(np.float32),
+        "rank2": cases["rank2"][0],
+        "rank1": cases["rank1"][0],
+        "rank0": np.float32(3.7 * two),
+    }.items():
+        xt = torch.from_numpy(np.asarray(x)).to(dev)
+        par.compare("lorenzo_quant", case, lorenzo_quant.lorenzo_quant(xt, eb),
+                    ref.lorenzo_quant_ref(xt, eb))
 
     # symbol_hist: shared-memory bins, a span above 4096, global-atomic bins,
     # out-of-range values
@@ -414,7 +458,7 @@ def main_path(x_np):
     check(torch.equal(out, recon), "decode differs from the compress-time reconstruction")
     crop = out[tuple(slice(a, b) for a, b in ROI)]
     check(torch.equal(region, crop), "region decode differs from the full decode's crop")
-    check(all(launches[k] > 0 for k in KERNELS if k not in GWLZ_KERNELS),
+    check(all(launches[k] > 0 for k in KERNELS if LAUNCH_PATH[k] == "main"),
           f"a kernel never launched: {launches}")
     emit({"phase": "main", "shape": list(SHAPE), "tile": list(TILE), "rel_eb": REL_EB,
           "backend": BACKEND, "eb_abs": art.eb_abs, "compress_s": t1 - t0,
@@ -486,6 +530,168 @@ def gwlz_path(x_np, phase: str):
     return art, model, launches
 
 
+def roi_key():
+    return tuple(slice(a, b) for a, b in ROI)
+
+
+def szjx_path(x_np, tmp: Path):
+    """The monolithic SZ path through the façade: compress, save, open, full
+    decode and the main ROI."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.sz import SZCompressor
+
+    path = tmp / "field.szjx"
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vol = api.compress(x_np, eb=REL_EB, predictor="lorenzo", backend=BACKEND)
+    n = api.save(path, vol)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with api.open(path) as back:
+        full = np.asarray(back)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        region = back[roi_key()]
+        t3 = time.perf_counter()
+        art = back.artifact
+    launches = dict(ops.LAUNCHES)
+
+    x = torch.from_numpy(x_np).cuda()
+    eb = art.eb_abs
+    out = torch.from_numpy(full.copy()).cuda()
+    check(full.shape == SHAPE and bool(torch.isfinite(out).all()), "szjx decode shape")
+    err = float((x.double() - out.double()).abs().max())
+    check(err <= eb * (1 + 1e-6), f"szjx error {err} above eb {eb}")
+    # the compress-time reconstruction, from the compressor itself (after
+    # the counters were read); compress is deterministic
+    again, recon = SZCompressor("lorenzo", backend=BACKEND).compress(x, rel_eb=REL_EB)
+    check(again.to_bytes() == path.read_bytes(), "szjx compress is not deterministic")
+    check(torch.equal(out, recon), "szjx decode differs from the compress-time reconstruction")
+    del again, recon
+    check(np.array_equal(region, full[roi_key()]), "szjx slice differs from the full crop")
+    check(all(launches[k] > 0 for k in SZJX_KERNELS), f"a szjx kernel never launched: {launches}")
+    corner = np.ascontiguousarray(x_np[:128, :128, :128])
+    card = SZCompressor("lorenzo", backend=BACKEND).compress(corner, rel_eb=REL_EB)[0]
+    cpu = SZCompressor("lorenzo", backend=BACKEND).compress(corner, rel_eb=REL_EB,
+                                                            device="cpu")[0]
+    check(card.to_bytes() == cpu.to_bytes(), "card and CPU SZJX bytes differ on the corner")
+    emit({"phase": "szjx", "shape": list(SHAPE), "rel_eb": REL_EB, "backend": BACKEND,
+          "eb_abs": eb, "compress_s": t1 - t0, "decompress_s": t2 - t1,
+          "region_ms": (t3 - t2) * 1e3, "roi": [list(r) for r in ROI], "ratio": x_np.nbytes / n,
+          "container_bytes": n, "max_abs_err": err, "corner_bytes_identical": True,
+          "symbols": int(np.prod(SHAPE)), "launches": launches})
+    return art, launches
+
+
+def gwlz_mono_path(x_np, tmp: Path):
+    """The paper's configuration: monolithic SZ, enhancers trained on the
+    full 512x512 slices, through the façade."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import metrics
+    from repro_torch.core.pipeline import GWLZTrainConfig
+    from repro_torch.kernels import ops
+
+    cfg = GWLZTrainConfig(epochs=MONO_EPOCHS)
+    path = tmp / "field_gwlz.szjx"
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vol = api.compress(x_np, eb=REL_EB, predictor="lorenzo", backend=BACKEND, enhance=cfg)
+    api.save(path, vol)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with api.open(path) as back:
+        full = np.asarray(back)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        region = back[roi_key()]
+        t3 = time.perf_counter()
+        art = back.artifact
+    launches = dict(ops.LAUNCHES)
+
+    stats = vol.train_stats
+    x = torch.from_numpy(x_np).cuda()
+    out = torch.from_numpy(full.copy()).cuda()
+    check(full.shape == SHAPE and bool(torch.isfinite(out).all()), "gwlz_mono decode shape")
+    psnr = float(metrics.psnr(x, out))
+    check(psnr == stats.psnr_gwlz, f"decode PSNR {psnr} != compress-time {stats.psnr_gwlz}")
+    check(np.array_equal(region, full[roi_key()]), "enhanced slice differs from the full crop")
+    check(stats.psnr_gwlz >= stats.psnr_sz - 1e-3,
+          f"enhancement lost PSNR: {stats.psnr_sz} -> {stats.psnr_gwlz}")
+    check(all(launches[k] > 0 for k in GWLZ_KERNELS + SZJX_KERNELS),
+          f"a kernel of the path never ran: {launches}")
+    from repro_torch.core.pipeline import deserialize_model
+
+    model = deserialize_model(art.extras["gwlz"])
+    sec = stats.seconds
+    steps = SHAPE[0] // cfg.batch_size * cfg.epochs
+    emit({"phase": "gwlz_mono", "field": "temperature", "shape": list(SHAPE),
+          "rel_eb": REL_EB, "n_groups": cfg.n_groups, "channels": cfg.channels,
+          "batch_size": cfg.batch_size, "epochs": cfg.epochs, "steps": steps,
+          "compress_s": t1 - t0, "seconds": sec,
+          "train_ms_per_step": 1e3 * sec["train"] / steps, "decompress_s": t2 - t1,
+          "region_ms": (t3 - t2) * 1e3, "psnr_sz": stats.psnr_sz,
+          "psnr_gwlz": stats.psnr_gwlz, "psnr_decode": psnr, "overhead": stats.overhead,
+          "ratio_sz": stats.cr_sz, "ratio_gwlz": stats.cr_gwlz,
+          "max_err_sz": stats.max_err_sz, "max_err_gwlz": stats.max_err_gwlz,
+          "trained_groups": int((np.asarray(stats.loss_history[-1]) > 0).sum()),
+          "active_groups": int((model.rscale > 0).sum()),
+          "loss_per_epoch": [[round(float(v), 6) for v in row] for row in stats.loss_history],
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches})
+    return art, model, launches
+
+
+def cli_path(tmp: Path) -> None:
+    """``python -m repro_torch.cli`` end to end in subprocesses (default
+    device: the card), tiled and monolithic."""
+    import numpy as np
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    roi = "8:40,0:16,20:52"
+    took = {}
+
+    def run(*argv, want=0):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.cli", *argv], env=env,
+                           capture_output=True, text=True, timeout=300)
+        took.setdefault(argv[0], []).append(time.perf_counter() - t)
+        check(r.returncode == want, f"cli {' '.join(argv)} exited {r.returncode}, not "
+              f"{want}: {r.stderr[-2000:]}")
+        return r.stdout
+
+    sizes = {}
+    for mode, flags in (("tiled", ["--tiled", "--tile", "16"]), ("mono", [])):
+        f = str(tmp / f"cli_{mode}.gw")
+        run("compress", "synthetic:temperature:64", f, "--eb", "1e-3", "--predictor",
+            "lorenzo", *flags)
+        run("info", f)
+        run("region", f, "--roi", roi, "--out", str(tmp / f"roi_{mode}.npy"))
+        run("decompress", f, str(tmp / f"full_{mode}.npy"))
+        run("verify", f)
+        full, part = np.load(tmp / f"full_{mode}.npy"), np.load(tmp / f"roi_{mode}.npy")
+        check(np.array_equal(part, full[8:40, 0:16, 20:52]), f"cli {mode}: ROI != full crop")
+        sizes[mode] = os.path.getsize(f)
+    from repro_torch.sz import TiledCompressed, tiled
+
+    blob = bytearray((tmp / "cli_tiled.gw").read_bytes())
+    art = TiledCompressed.from_bytes(bytes(blob))
+    blob[tiled.lane_offset(art, 5) + 7] ^= 0x20
+    bad = tmp / "cli_bad.gw"
+    bad.write_bytes(bytes(blob))
+    run("verify", str(bad), want=1)
+    emit({"phase": "cli", "input": "synthetic:temperature:64", "roi": roi,
+          "container_bytes": sizes, "flipped_lane_verify_exit": 1,
+          "seconds": {k: [round(v, 3) for v in vs] for k, vs in took.items()}})
+
+
 def time_row(rows, name, kern, plain, nbytes, nops, library=None, reps=200, plain_reps=20,
              timer=None):
     """Time kernel, plain version and library call; store the row with its
@@ -526,24 +732,27 @@ def enhancer_flop(n: int, ids, live, C: int) -> tuple[int, float]:
     return 2 * 9 * C * (n_h + n_out), n_h / n
 
 
-def gwlz_kernel_rows(par: Parity, gw_art, model, case: str, mode: str,
-                     with_g1: bool) -> dict:
-    """Parity and timing of group_hist and enhancer_fused on every decoded
-    tile as slices, with the trained model's edges and table: the enhanced
-    full decode's launch (``mode="residual"``) or the gate's (``"pred"``,
-    every group with an output).  ``with_g1`` adds the TPU kernel's own
-    G = 1 contract on the same slices."""
+def tile_slices(gw_art):
+    """Every decoded tile of a tiled artifact as one stack of slices."""
+    from repro_torch.sz.tiled import decode_lanes
+
+    recon, _ = decode_lanes(gw_art, range(gw_art.n_tiles))
+    return recon.reshape((-1,) + tuple(TILE[1:])).contiguous()
+
+
+def gwlz_kernel_rows(par: Parity, xs, model, case: str, mode: str, with_g1: bool) -> dict:
+    """Parity and timing of group_hist and enhancer_fused on the decoded
+    slices ``xs`` [B, H, W], with the trained model's edges and table: the
+    enhanced full decode's launch (``mode="residual"``) or the gate's
+    (``"pred"``, every group with an output).  ``with_g1`` adds the TPU
+    kernel's own G = 1 contract on the same slices."""
     import torch
 
     from repro_torch.core import enhancer
     from repro_torch.kernels import enhancer_fused, group_hist, ref
-    from repro_torch.sz.tiled import decode_lanes
 
     rows = {}
     row = functools.partial(time_row, rows)
-    recon, _ = decode_lanes(gw_art, range(gw_art.n_tiles))
-    xs = recon.reshape((-1,) + tuple(TILE[1:])).contiguous()
-    del recon
     edges = model.edges
     G = edges.numel() - 1
     ids, hist = group_hist.group_hist(xs, edges)
@@ -634,10 +843,14 @@ def gwlz_kernel_rows(par: Parity, gw_art, model, case: str, mode: str,
     return rows
 
 
-def kernel_rows(par: Parity, x_np, art, launches, gw: dict) -> list[dict]:
-    """Parity and timing of each kernel on the main path's own shapes; the
-    enhancer's kernels on both gwlz runs (``gw``: phase -> (art, model,
-    launches)), the second as each row's ``all_groups``."""
+def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
+                mono) -> list[dict]:
+    """Parity and timing of each kernel on its path's own shapes
+    (``path_launches``: path -> launches of its run); the enhancer's
+    kernels on both gwlz runs (``gw``: phase -> (art, model, launches)), the
+    second as each row's ``all_groups``; lorenzo_quant on the szjx path
+    (``sz_art``), and huffman_decode and enhancer_fused also at the
+    monolithic shapes (``mono``: the gwlz_mono (art, model, launches))."""
     import numpy as np
     import torch
 
@@ -663,6 +876,42 @@ def kernel_rows(par: Parity, x_np, art, launches, gw: dict) -> list[dict]:
     row("lorenzo_quant_tiles", lambda: lorenzo_quant.lorenzo_quant_tiles(tiles, eb),
         lambda: ref.lorenzo_quant_tiles_ref(tiles, eb), 8 * n, 8 * n, reps=20, plain_reps=5)
     rows["lorenzo_quant_tiles"]["shape_note"] = f"x {list(tiles.shape)} f32"
+
+    vcodes = lorenzo_quant.lorenzo_quant(x, eb)
+    par.compare("lorenzo_quant", "szjx_512^3", vcodes, ref.lorenzo_quant_ref(x, eb))
+    del vcodes
+    n = x.numel()
+    # bytes: read x, write codes; operations: 1 division + 7 adds per element
+    row("lorenzo_quant", lambda: lorenzo_quant.lorenzo_quant(x, eb),
+        lambda: ref.lorenzo_quant_ref(x, eb), 8 * n, 8 * n, reps=20, plain_reps=5)
+    rows["lorenzo_quant"]["shape_note"] = f"x {list(x.shape)} f32, whole volume"
+
+    # the one whole-volume stream of the szjx path: one launch each over
+    # every symbol / chunk (``mono``)
+    mrows = {}
+    vflat = lorenzo_quant.lorenzo_quant(x, eb).reshape(-1)
+    lo, hi = torch.stack(torch.aminmax(vflat)).tolist()
+    vshift, vspan = vflat - lo, hi - lo + 1
+    par.compare("symbol_hist", "szjx_stream", group_hist.symbol_hist(vshift, vspan),
+                ref.symbol_hist_ref(vshift, vspan))
+    vshift64 = vshift.to(torch.int64)
+    time_row(mrows, "symbol_hist", lambda: group_hist.symbol_hist(vshift, vspan),
+             lambda: ref.symbol_hist_ref(vshift, vspan), 4 * vshift.numel() + 4 * vspan,
+             vshift.numel(), library=lambda: torch.bincount(vshift64, minlength=vspan),
+             reps=20, plain_reps=2)
+    mrows["symbol_hist"]["shape_note"] = f"{vshift.numel()} symbols, {vspan} bins, one stream"
+    del vshift, vshift64
+    vcodec = entropy.HuffmanCodec.fit(vflat)
+    vl, vc = vcodec._pack_inputs(vflat, entropy.DEFAULT_CHUNK)
+    del vflat
+    par.compare("huffman_encode", "szjx_stream", huffman_encode.huffman_encode_pack(vl, vc),
+                ref.huffman_encode_ref(vl, vc))
+    vC, vcs = vl.shape
+    time_row(mrows, "huffman_encode", lambda: huffman_encode.huffman_encode_pack(vl, vc),
+             lambda: ref.huffman_encode_ref(vl, vc), 12 * vC * vcs + 4 * vC, 12 * vC * vcs,
+             reps=20, plain_reps=1)
+    mrows["huffman_encode"]["shape_note"] = f"lens/codes [{vC}, {vcs}] i32, one stream"
+    del vl, vc
 
     flat = codes[lane].reshape(-1)
     lo, hi = torch.stack(torch.aminmax(flat)).tolist()
@@ -699,30 +948,58 @@ def kernel_rows(par: Parity, x_np, art, launches, gw: dict) -> list[dict]:
         lambda: ref.huffman_decode_ref(*args, **kw), nbytes, 16 * n_sym, plain_reps=5)
     rows["huffman_decode"]["shape_note"] = (f"{args[0].numel()} stream words, "
                                             f"ids [{ids.shape[0]}, {ids.shape[1]}]")
+    del args, ids
+
+    dcodec, n_sym, dcs, chunk_bits, stream, _ = entropy.parse_chunked(sz_art.code_blob)
+    cb = np.asarray(chunk_bits, np.int64)
+    args, kw = dcodec._decode_inputs(stream, n_sym, dcs, np.cumsum(cb) - cb, dev)
+    ids = huffman_decode.huffman_decode_probe(*args, **kw)
+    par.compare("huffman_decode", "szjx_stream", ids, ref.huffman_decode_ref(*args, **kw))
+    n_words = -(-int(cb.sum()) // 32)
+    nbytes = 4 * (n_words + args[1].numel() + args[2].numel() + ids.numel())
+    time_row(mrows, "huffman_decode", lambda: huffman_decode.huffman_decode_probe(*args, **kw),
+             lambda: ref.huffman_decode_ref(*args, **kw), nbytes, 16 * n_sym, reps=20,
+             plain_reps=1)
+    mrows["huffman_decode"]["shape_note"] = (f"{args[0].numel()} stream words, ids "
+                                             f"[{ids.shape[0]}, {ids.shape[1]}], one stream")
+    del args, ids
 
     gw_art, model, gw_launches = gw["gwlz"]
-    rows.update(gwlz_kernel_rows(par, gw_art, model, "gwlz", "residual", with_g1=True))
+    rows.update(gwlz_kernel_rows(par, tile_slices(gw_art), model, "gwlz", "residual",
+                                 with_g1=True))
     all_art, all_model, all_launches = gw["gwlz_all_groups"]
-    all_rows = gwlz_kernel_rows(par, all_art, all_model, "gwlz_all_groups", "pred",
-                                with_g1=False)
+    all_rows = gwlz_kernel_rows(par, tile_slices(all_art), all_model, "gwlz_all_groups",
+                                "pred", with_g1=False)
+    mono_art, mono_model, mono_launches = mono
+    from repro_torch.sz import SZCompressor
+
+    mono_xs = SZCompressor("lorenzo").decompress(mono_art)  # 512 slices of 512x512
+    mrows.update(gwlz_kernel_rows(par, mono_xs, mono_model, "gwlz_mono", "residual",
+                                  with_g1=False))
+    del mono_xs
 
     out = []
     for name, (source, replaces, _) in KERNELS.items():
         r = rows[name]
-        path_launches = gw_launches if name in GWLZ_KERNELS else launches
         if name in GWLZ_KERNELS:
             a = all_rows[name]
             r["all_groups"] = {"launches": all_launches[name], "shape": a.pop("shape_note"),
                                **a}
+        if name in mrows:
+            m = mrows[name]
+            r["mono"] = {"launches": (mono_launches if name in GWLZ_KERNELS
+                                      else path_launches["szjx"])[name],
+                         "shape": m.pop("shape_note"), **m}
+        path = LAUNCH_PATH[name]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": path_launches[name], "max_abs_err": par.err[name],
+                    "launches": path_launches[path][name], "max_abs_err": par.err[name],
                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                     "ms_by": r["ms_by"], "call_ms": r["call_ms"], "shape": r["shape_note"],
-                    "launches_path": "gwlz" if name in GWLZ_KERNELS else "main",
-                    "launches_gwlz": gw_launches[name],
+                    "launches_path": path,
+                    "launches_by_path": {p: ls[name] for p, ls in path_launches.items()},
                     **({"tolerance": par.tol[name]} if par.tol[name] else {}),
-                    **{k: r[k] for k in ("flop", "g1", "all_groups") if k in r}})
+                    **{k: r[k] for k in ("flop", "g1", "all_groups", "mono") if k in r}})
     return out
 
 
@@ -748,13 +1025,18 @@ def golden() -> None:
 
     from repro_torch.sz import TiledCompressed, decompress_tiled
 
+    from repro_torch.sz import SZCompressed, decompress
+
     gold = ROOT / "tests" / "golden"
-    art = TiledCompressed.from_bytes((gold / "gwtc_v1.bin").read_bytes())
-    got = decompress_tiled(art).cpu().numpy()
-    want = np.load(gold / "gwtc_v1_decode.npy")
-    check(got.shape == want.shape and np.array_equal(got, want),
-          "gwtc_v1.bin does not decode bit-exact")
-    emit({"phase": "golden", "file": "tests/golden/gwtc_v1.bin", "bit_exact": True})
+    for name, parse, decode in (("gwtc_v1", TiledCompressed.from_bytes, decompress_tiled),
+                                ("szjx_lorenzo", SZCompressed.from_bytes, decompress)):
+        got = decode(parse((gold / f"{name}.bin").read_bytes())).cpu().numpy()
+        want = np.load(gold / f"{name}_decode.npy")
+        check(got.shape == want.shape and np.array_equal(got.view(np.uint32),
+                                                         want.view(np.uint32)),
+              f"{name}.bin does not decode bit-exact")
+    emit({"phase": "golden", "files": ["tests/golden/gwtc_v1.bin",
+                                       "tests/golden/szjx_lorenzo.bin"], "bit_exact": True})
 
 
 def main() -> int:
@@ -793,8 +1075,14 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     gw["gwlz_all_groups"] = gwlz_path(vx, "gwlz_all_groups")
     del vx
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        sz_art, sz_launches = szjx_path(x_np, Path(tmp))
+        mono = gwlz_mono_path(x_np, Path(tmp))
+        cli_path(Path(tmp))
+    path_launches = {"main": launches, "gwlz": gw["gwlz"][2], "szjx": sz_launches,
+                     "gwlz_mono": mono[2]}
     with torch.no_grad():  # the model's parameters must not build autograd graphs here
-        rows = kernel_rows(par, x_np, art, launches, gw)
+        rows = kernel_rows(par, x_np, art, path_launches, gw, sz_art, mono)
     cpu_vs_card(x_np)
     golden()
 

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.ops import resolve_device
+
 DEFAULT_CHANNELS = 9
 PARAM_NAMES = ("b1", "b2", "beta", "gamma", "w1", "w2")  # sorted, as the blob stores them
 BN_EPS = 1e-5
@@ -31,7 +33,9 @@ def init_params(n_groups: int, channels: int = DEFAULT_CHANNELS, *,
                 generator: torch.Generator | None = None, device=None) -> dict:
     """He-normal conv weights, zero biases, unit BN scale: the reference's
     distribution (``jax.random`` bits cannot be reproduced; tests inject
-    the reference's draw instead)."""
+    the reference's draw instead).  ``device=None`` means the CUDA device."""
+    device = resolve_device(device)
+
     def normal(*shape, fan):
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device="cpu")
         return (w * (2.0 / fan) ** 0.5).to(device)
@@ -49,6 +53,7 @@ def init_params(n_groups: int, channels: int = DEFAULT_CHANNELS, *,
 
 def init_state(n_groups: int, channels: int = DEFAULT_CHANNELS, *, device=None) -> dict:
     """Non-trainable BN running statistics (stored in the model blob)."""
+    device = resolve_device(device)
     return {"mean": torch.zeros((n_groups, channels), device=device),
             "var": torch.ones((n_groups, channels), device=device)}
 
@@ -120,12 +125,14 @@ def apply(params: dict, state: dict, x: torch.Tensor, *, train: bool,
 
 class GroupEnhancers(nn.Module):
     """G enhancers as one module: parameters ``b1 b2 beta gamma w1 w2`` and
-    BN buffers ``mean var``, each with a leading [G] axis.  The init draws
-    from ``generator`` (default: seed 0), never from torch's global one."""
+    BN buffers ``mean var``, each with a leading [G] axis, on ``device``
+    (None: the CUDA device, which must exist).  The init draws from
+    ``generator`` (default: seed 0), never from torch's global one."""
 
     def __init__(self, n_groups: int, channels: int = DEFAULT_CHANNELS, *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.n_groups, self.channels = n_groups, channels
         generator = generator or torch.Generator().manual_seed(0)
         for name, value in init_params(n_groups, channels, generator=generator,

@@ -1,13 +1,12 @@
-"""GWLZ end-to-end pipeline (paper Figs. 1-2), tiled half, port of
-``repro/core/pipeline.py``: tiled SZ compression, group-wise enhancer
-training on the decoder's own tiles, the model blob attached to the GWTC
-container's extras (fp32, §4.1), and enhanced full and region decode.
+"""GWLZ end-to-end pipeline (paper Figs. 1-2), port of
+``repro/core/pipeline.py``: SZ compression (monolithic SZJX or tiled
+GWTC), group-wise enhancer training on the decoder's own data, the model
+blob attached to the container's extras (fp32, §4.1), and enhanced full
+and region decode.
 
-The reference reaches its tiled engine through ``SZCompressor``, whose
-default predictor is interp; the port has no ``SZCompressor`` yet, so
-:class:`GWLZ` calls :func:`repro_torch.sz.compress_tiled` with the
-predictor given per call (``"lorenzo"``, the only one ported).  The
-monolithic SZJX path comes with the interp port.
+As in the reference, :class:`GWLZ` reaches both containers through its
+``SZCompressor``, whose default predictor is interp; that predictor is not
+ported yet, so pass ``sz=SZCompressor("lorenzo")``.
 """
 from __future__ import annotations
 
@@ -24,12 +23,15 @@ from repro_torch.core.trainer import (
     GWLZModel,
     GWLZTrainConfig,
     clock,
+    enhance,
     enhance_tiles,
+    train_enhancers,
     train_enhancers_tiled,
 )
 from repro_torch.errors import CorruptContainerError
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.sz import tiled
+from repro_torch.sz.szjax import SZCompressed, SZCompressor
 
 _GW_MAGIC = b"GWLZ"
 _GW_HEAD = struct.Struct("<4sIIIB3x")  # magic, n_groups, channels, strategy, residual
@@ -122,49 +124,39 @@ class GWLZStats:
 
 
 class GWLZ:
-    """compress_tiled(): tiled SZ compression + group-wise enhancer training.
-    decode(): tiled decode + group-wise enhancement per tile, full or ROI.
+    """compress(): SZ3-class compression + group-wise enhancer training.
+    decode(): SZ decode + group-wise enhancement (Figs. 1-2), full or ROI.
 
-    Entry points take ``device=None``, meaning the CUDA device (which must
-    exist); pass ``device="cpu"`` to run the plain versions."""
+    The canonical entry points are container-agnostic: :meth:`compress_volume`
+    returns a :class:`repro_torch.api.CompressedVolume` handle and
+    :meth:`decode` takes either artifact (monolithic ``SZJX`` or tiled
+    ``GWTC``) plus an optional ROI; ``decompress*`` are shims over
+    :meth:`decode`.  Entry points take ``device=None``, meaning the CUDA
+    device (which must exist); pass ``device="cpu"`` to run the plain
+    versions."""
 
-    def __init__(self, train_cfg: GWLZTrainConfig = GWLZTrainConfig(),
+    def __init__(self, sz: SZCompressor | None = None,
+                 train_cfg: GWLZTrainConfig = GWLZTrainConfig(),
                  clamp_to_bound: bool = False):
+        self.sz = sz or SZCompressor()
         self.train_cfg = train_cfg
         self.clamp_to_bound = clamp_to_bound
 
     def _clamp(self, artifact) -> float | None:
         return artifact.eb_abs if self.clamp_to_bound else None
 
-    def compress_tiled(self, x, tile=(64, 64, 64), *, rel_eb: float | None = None,
-                       abs_eb: float | None = None, predictor: str = "lorenzo",
-                       callback=None, device=None):
-        """Tile-grid GWLZ: tiled SZ compress, then ONE batched enhancer
-        training pass over the per-tile slice stack; the model rides in the
-        GWTC extras.  Returns (TiledCompressed, GWLZStats)."""
-        device = resolve_device(device)
-        x = torch.as_tensor(x, dtype=torch.float32).to(device)
-        if x.ndim != 3:
-            raise ValueError("tiled GWLZ needs a 3D volume (enhancers are 2D CNNs)")
-        t0 = clock(device)
-        artifact, recon = tiled.compress_tiled(x, tile, rel_eb=rel_eb, abs_eb=abs_eb,
-                                               predictor=predictor, device=device)
+    # -- shared orchestration core (monolithic and tiled paths) ----------------
+
+    def _finish_compress(self, x, artifact, recon, *, train_fn, enhance_fn, seconds: dict,
+                         device):
+        """The train + attach + enhance + stats sequence both compression
+        front ends share.  ``seconds`` holds the phases before training."""
         sz_bytes = artifact.nbytes
-        t1 = clock(device)
-        # Train on the decoder's own tiles: the exact arrays decompression
-        # will feed the enhancer.
-        recon_tiles, _ = tiled.decode_lanes(artifact, range(artifact.n_tiles), device=device)
-        resid_tiles = tiled.split_tiles(tiled.pad_to_tiles(x, artifact.tile),
-                                        artifact.tile) - recon_tiles
-        t2 = clock(device)
-        model, history = train_enhancers_tiled(recon_tiles, resid_tiles, self.train_cfg,
-                                               callback=callback, device=device)
+        model, history = train_fn()
         artifact.extras["gwlz"] = serialize_model(model)
-        t3 = clock(device)
-        out = enhance_tiles(recon_tiles, model, clamp_eb=self._clamp(artifact))
-        enhanced = tiled.stitch_tiles(out, artifact.grid)[tuple(slice(0, d) for d in x.shape)]
-        seconds = {"sz": t1 - t0, "decode": t2 - t1, **history["seconds"],
-                   "enhance": clock(device) - t3}
+        t = clock(device)
+        enhanced = enhance_fn(model)
+        seconds = {**seconds, **history["seconds"], "enhance": clock(device) - t}
         total_bytes = artifact.nbytes
         stats = GWLZStats(
             psnr_sz=float(metrics.psnr(x, recon)),
@@ -181,6 +173,82 @@ class GWLZ:
         )
         return artifact, stats
 
+    def compress(self, x, *, rel_eb: float | None = None, abs_eb: float | None = None,
+                 callback=None, device=None) -> tuple[SZCompressed, GWLZStats]:
+        """Monolithic GWLZ: SZJX compress of the whole volume, then the
+        enhancers train on its slices (the compress-time reconstruction is
+        the decoder's own output).  Returns (SZCompressed, GWLZStats)."""
+        device = resolve_device(device)
+        x = torch.as_tensor(x, dtype=torch.float32).to(device)
+        t0 = clock(device)
+        artifact, recon = self.sz.compress(x, rel_eb=rel_eb, abs_eb=abs_eb, device=device)
+        artifact.to_bytes()  # the serialization (cached) belongs to the sz phase
+        t1 = clock(device)
+        return self._finish_compress(
+            x, artifact, recon,
+            train_fn=lambda: train_enhancers(recon, x - recon, self.train_cfg,
+                                             callback=callback, device=device),
+            enhance_fn=lambda m: enhance(recon, m, clamp_eb=self._clamp(artifact),
+                                         device=device),
+            seconds={"sz": t1 - t0}, device=device)
+
+    def compress_tiled(self, x, tile=(64, 64, 64), *, rel_eb: float | None = None,
+                       abs_eb: float | None = None, predictor: str | None = None,
+                       callback=None, device=None):
+        """Tile-grid GWLZ: tiled SZ compress (``predictor`` overrides the
+        SZCompressor's), then ONE batched enhancer training pass over the
+        per-tile slice stack; the model rides in the GWTC extras.  Returns
+        (TiledCompressed, GWLZStats)."""
+        device = resolve_device(device)
+        x = torch.as_tensor(x, dtype=torch.float32).to(device)
+        if x.ndim != 3:
+            raise ValueError("tiled GWLZ needs a 3D volume (enhancers are 2D CNNs)")
+        t0 = clock(device)
+        artifact, recon = self.sz.compress_tiled(x, tile, rel_eb=rel_eb, abs_eb=abs_eb,
+                                                 predictor=predictor, device=device)
+        t1 = clock(device)
+        # Train on the decoder's own tiles: the exact arrays decompression
+        # will feed the enhancer.
+        recon_tiles, _ = tiled.decode_lanes(artifact, range(artifact.n_tiles), device=device)
+        resid_tiles = tiled.split_tiles(tiled.pad_to_tiles(x, artifact.tile),
+                                        artifact.tile) - recon_tiles
+        t2 = clock(device)
+
+        def enhance_fn(model):
+            out = enhance_tiles(recon_tiles, model, clamp_eb=self._clamp(artifact))
+            return tiled.stitch_tiles(out, artifact.grid)[tuple(slice(0, d) for d in x.shape)]
+
+        return self._finish_compress(
+            x, artifact, recon,
+            train_fn=lambda: train_enhancers_tiled(recon_tiles, resid_tiles, self.train_cfg,
+                                                   callback=callback, device=device),
+            enhance_fn=enhance_fn, seconds={"sz": t1 - t0, "decode": t2 - t1}, device=device)
+
+    # -- canonical container-agnostic entry points -----------------------------
+
+    def compress_volume(self, x, *, tiled: bool = False, tile=(64, 64, 64),
+                        rel_eb: float | None = None, abs_eb: float | None = None,
+                        predictor: str | None = None, callback=None, device=None):
+        """Compress + train + attach, returning a
+        :class:`repro_torch.api.CompressedVolume` handle (``vol.stats``
+        carries the paper metrics; decode and slicing route back through
+        this pipeline, so the attached enhancer is always applied)."""
+        from repro_torch.api import CompressedVolume
+
+        device = resolve_device(device)
+        if tiled:
+            artifact, stats = self.compress_tiled(
+                x, tile, rel_eb=rel_eb, abs_eb=abs_eb, predictor=predictor,
+                callback=callback, device=device)
+        else:
+            if predictor is not None and predictor != self.sz.predictor:
+                raise ValueError(
+                    "monolithic predictor is fixed by the SZCompressor; "
+                    f"construct GWLZ(sz=SZCompressor(predictor={predictor!r}))")
+            artifact, stats = self.compress(x, rel_eb=rel_eb, abs_eb=abs_eb,
+                                            callback=callback, device=device)
+        return CompressedVolume(artifact, stats=stats, pipeline=self, device=device)
+
     def _tile_enhancer(self, artifact, device):
         """Per-tile enhancement transform for decoded tile batches, or None
         when no model is attached."""
@@ -192,25 +260,43 @@ class GWLZ:
         return lambda tiles: enhance_tiles(tiles, model, clamp_eb=clamp)
 
     def decode(self, artifact, roi=None, *, device=None) -> torch.Tensor:
-        """Decode a tiled artifact, enhanced when a model is attached: the
-        full volume, or just ``roi`` (only the intersecting lanes decode;
-        bit-identical to the full decode's crop)."""
-        if not isinstance(artifact, tiled.TiledCompressed):
-            raise TypeError("the port decodes tiled (GWTC) artifacts; the monolithic "
-                            "SZJX container is not ported yet")
+        """Container-agnostic decode, enhanced when a model is attached: the
+        full volume, or just ``roi``.  Tiled artifacts decode only the lanes
+        an ROI intersects; monolithic ones decode whole and crop after
+        enhancement.  Either way the ROI equals the full decode's crop bit
+        for bit."""
         device = resolve_device(device)
-        transform = self._tile_enhancer(artifact, device)
+        if isinstance(artifact, tiled.TiledCompressed):
+            transform = self._tile_enhancer(artifact, device)
+            if roi is None:
+                return tiled.decompress_tiled(artifact, device=device,
+                                              tile_transform=transform)
+            return tiled.decompress_region(artifact, roi, device=device,
+                                           tile_transform=transform)
+        if not isinstance(artifact, SZCompressed):
+            raise TypeError(f"cannot decode a {type(artifact).__name__}")
+        recon = self.sz.decompress(artifact, device=device)
+        blob = artifact.extras.get("gwlz")
+        if blob is not None:
+            recon = enhance(recon, _deserialize_model_cached(blob, device),
+                            clamp_eb=self._clamp(artifact), device=device)
         if roi is None:
-            return tiled.decompress_tiled(artifact, device=device, tile_transform=transform)
-        return tiled.decompress_region(artifact, roi, device=device, tile_transform=transform)
+            return recon
+        bounds = tiled.normalize_roi(roi, tuple(artifact.shape))
+        return recon[tuple(slice(lo, hi) for lo, hi in bounds)]
 
     def decode_tiles(self, artifact, lane_ids, *, device=None) -> torch.Tensor:
-        """Decode the named lanes to final per-tile values (enhanced when a
-        model is attached): ``[len(ids), *tile]``."""
+        """Decode the named lanes of a tiled artifact to final per-tile
+        values (enhanced when a model is attached): ``[len(ids), *tile]``."""
         device = resolve_device(device)
         recon, _, bad = tiled.decode_lanes(artifact, lane_ids, with_mask=True, device=device)
         return tiled.apply_tile_transform(self._tile_enhancer(artifact, device), recon, bad,
                                           artifact.fill_value)
+
+    # -- per-container shims ---------------------------------------------------
+
+    def decompress(self, artifact: SZCompressed, *, device=None) -> torch.Tensor:
+        return self.decode(artifact, device=device)
 
     def decompress_tiled(self, artifact, *, device=None) -> torch.Tensor:
         return self.decode(artifact, device=device)
@@ -219,3 +305,12 @@ class GWLZ:
         """ROI decode touching only intersecting tiles; enhancement (when a
         model is attached) runs on exactly those tiles."""
         return self.decode(artifact, roi, device=device)
+
+
+def quick_compress(x, rel_eb=1e-3, n_groups=20, epochs=60, *, device=None, **kw):
+    """Convenience entry point (reduced epochs), on the reference's default
+    ``SZCompressor()``, whose interp predictor is not ported yet: until it
+    is, this raises ``NotImplementedError``; use
+    ``GWLZ(sz=SZCompressor("lorenzo"), ...).compress``."""
+    cfg = GWLZTrainConfig(n_groups=n_groups, epochs=epochs, **kw)
+    return GWLZ(train_cfg=cfg).compress(x, rel_eb=rel_eb, device=device)

@@ -36,8 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches of each kernel since the last reset_launches(); keys are the
 # wrapper names ops.py exposes (ops.LAUNCHES is this dict)
-LAUNCHES = {"lorenzo_quant_tiles": 0, "symbol_hist": 0, "huffman_encode": 0,
-            "huffman_decode": 0, "group_hist": 0, "enhancer_fused": 0}
+LAUNCHES = {"lorenzo_quant_tiles": 0, "lorenzo_quant": 0, "symbol_hist": 0,
+            "huffman_encode": 0, "huffman_decode": 0, "group_hist": 0, "enhancer_fused": 0}
 BUILD_LOG: dict[str, str] = {}  # source name -> nvcc/ptxas output of its build
 
 _LOCK = threading.Lock()

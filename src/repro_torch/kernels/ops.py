@@ -15,7 +15,7 @@ from repro_torch.kernels.enhancer_fused import enhancer_grouped, single_enhancer
 from repro_torch.kernels.group_hist import group_hist, symbol_hist
 from repro_torch.kernels.huffman_decode import huffman_decode_probe
 from repro_torch.kernels.huffman_encode import huffman_encode_pack
-from repro_torch.kernels.lorenzo_quant import lorenzo_quant_tiles
+from repro_torch.kernels.lorenzo_quant import lorenzo_quant, lorenzo_quant_tiles
 
 LAUNCHES = _build.LAUNCHES
 reset_launches = _build.reset_launches
@@ -38,6 +38,15 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type != "cpu":
         raise ValueError(f"no kernel or plain version for device {t.device}")
     return False
+
+
+def lorenzo_quant_op(x: torch.Tensor, eb: float) -> torch.Tensor:
+    """Whole-volume Lorenzo codes of rint(x / 2eb): float32 volume -> int32.
+    The kernel takes ranks 0..3 (and raises above); the plain version any
+    rank."""
+    if _on_cuda(x):
+        return lorenzo_quant(x, eb)
+    return ref.lorenzo_quant_ref(x, eb)
 
 
 def lorenzo_quant_tiles_op(x: torch.Tensor, eb: float) -> torch.Tensor:

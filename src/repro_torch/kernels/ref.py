@@ -41,17 +41,27 @@ def _to_int32(w: torch.Tensor) -> torch.Tensor:
     return (w - ((w >> 31) << 32)).to(torch.int32)
 
 
-def lorenzo_quant_tiles_ref(x: torch.Tensor, eb: float) -> torch.Tensor:
-    """[B, *tile] float32 -> int32 Lorenzo codes, each tile its own domain.
-
-    q = rint(x / 2eb) in float32, then a first difference along every tile
-    axis with a zero boundary at the tile's leading edge.  The differences
-    are int32 (as ``repro.kernels.ref.lorenzo_quant_ref``), not float32 as
-    in the Pallas kernel, which parts from the oracle above |q| = 2**24."""
+def _quant_diff(x: torch.Tensor, eb: float, first_axis: int) -> torch.Tensor:
     q = torch.round(torch.div(x, two_eb_tensor(eb, x.device))).to(torch.int32)
-    for ax in range(1, q.ndim):
+    for ax in range(first_axis, q.ndim):
         q = torch.diff(q, dim=ax, prepend=torch.zeros_like(q.narrow(ax, 0, 1)))
     return q
+
+
+def lorenzo_quant_ref(x: torch.Tensor, eb: float) -> torch.Tensor:
+    """Float32 volume (any rank) -> int32 Lorenzo codes of the whole volume:
+    q = rint(x / 2eb) in float32, then a first difference along every axis
+    with a zero boundary at the leading face, in int32 (wrapping), as
+    ``repro.kernels.ref.lorenzo_quant_ref``."""
+    return _quant_diff(x, eb, 0)
+
+
+def lorenzo_quant_tiles_ref(x: torch.Tensor, eb: float) -> torch.Tensor:
+    """[B, *tile] float32 -> int32 Lorenzo codes, each tile its own domain:
+    :func:`lorenzo_quant_ref` of every tile.  The differences are int32 (as
+    ``repro.kernels.ref.lorenzo_quant_ref``), not float32 as in the Pallas
+    kernel, which parts from the oracle above |q| = 2**24."""
+    return _quant_diff(x, eb, 1)
 
 
 def symbol_hist_ref(symbols: torch.Tensor, n_bins: int) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""Error-bounded lossy compression substrate: the tiled GWTC engine."""
+"""Error-bounded lossy compression substrate: the monolithic SZJX compressor
+and the tiled GWTC engine."""
 from repro_torch.sz.artifact import from_bytes, register_container, sniff_magic
+from repro_torch.sz.szjax import SZCompressed, SZCompressor, compress, decompress
 from repro_torch.sz.tiled import (
     TiledCompressed,
     compress_tiled,
@@ -11,6 +13,10 @@ __all__ = [
     "from_bytes",
     "register_container",
     "sniff_magic",
+    "SZCompressed",
+    "SZCompressor",
+    "compress",
+    "decompress",
     "TiledCompressed",
     "compress_tiled",
     "decompress_tiled",

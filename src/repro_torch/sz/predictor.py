@@ -3,25 +3,28 @@ half of ``repro/sz/predictor.py``: ``:37-59``, ``:269-386``).
 
 Values are prequantized onto the 2*eb grid and an exact integer Lorenzo
 stencil decorrelates them; reconstruction is an int32 cumsum along each
-axis.  The tiled engine dispatches its per-tile transform through
+axis.  The whole-volume encode (the monolithic SZJX path) runs on the
+``lorenzo_quant`` kernel, the per-tile one on ``lorenzo_quant_tiles``.  The
+tiled engine dispatches its per-tile transform through
 :func:`get_predictor`; only ``"lorenzo"`` is registered in the port so far
-(the interp predictor comes with the monolithic SZJX path).  The wire ids
-are the reference's, so containers name predictors identically.
+(the interp predictor is ROADMAP.md Queue 1 item 6).  The wire ids are the
+reference's, so containers name predictors identically.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.sz.quantizer import dequantize_pre, prequantize
+from repro_torch.sz.quantizer import dequantize_pre
 
 
 def lorenzo_encode(x: torch.Tensor, eb: float) -> torch.Tensor:
     """x -> int32 Lorenzo deltas of the prequantized grid (lossy only in
-    the prequantization)."""
-    q = prequantize(x, eb)
-    for ax in range(q.ndim):
-        q = torch.diff(q, dim=ax, prepend=torch.zeros_like(q.narrow(ax, 0, 1)))
-    return q
+    the prequantization), through ``ops.lorenzo_quant_op``: the
+    ``lorenzo_quant`` kernel on the card (volumes of rank up to 3), the
+    plain version on the CPU (any rank)."""
+    from repro_torch.kernels import ops
+
+    return ops.lorenzo_quant_op(x.to(torch.float32), eb)
 
 
 def lorenzo_decode(codes: torch.Tensor, eb: float) -> torch.Tensor:

@@ -100,6 +100,11 @@ class LaneStore:
     def nbytes(self) -> int:
         return int(self._lens.sum())
 
+    def release(self) -> None:
+        """Drop the reference to the backing buffer, so the mmap under it
+        can close; the store is unusable afterwards."""
+        self._buf = None
+
 
 def lanes_nbytes(tile_blobs) -> int:
     if isinstance(tile_blobs, LaneStore):
@@ -212,6 +217,14 @@ class TiledCompressed:
         return (_HDR_V3.size + 16 * len(self.shape) + lanes_nbytes(self.tile_blobs)
                 + len(_pack_extras(self.extras))
                 + _index_nbytes(len(self.tile_blobs)) + _FOOTER_V3.size)
+
+    def size_report(self) -> dict:
+        lanes = lanes_nbytes(self.tile_blobs)
+        extras = len(_pack_extras(self.extras))
+        index = _index_nbytes(len(self.tile_blobs)) + _FOOTER_V3.size
+        header = _HDR_V3.size + 16 * len(self.shape)
+        return {"lanes": lanes, "index": index, "extras": extras,
+                "header": header, "total": header + lanes + extras + index}
 
     def to_bytes(self) -> bytes:
         """GWTC v3 bytes, written through the same writer streaming uses."""
@@ -413,6 +426,19 @@ def _check_lane(artifact: TiledCompressed, i: int, blob) -> bool:
         return False
     raise CorruptLaneError(i, lane_offset=lane_offset(artifact, i),
                            expected_crc=expected, actual_crc=actual)
+
+
+def verify_lanes(artifact: TiledCompressed, lane_ids=None) -> list[int]:
+    """Checksum the given lanes (all, by default) without decoding them: the
+    ``verify="full"`` open policy.  Returns the quarantined lane ids (always
+    empty under ``on_corrupt="raise"``, which raises instead), and ``[]``
+    at once when the container carries no checksums or ``verify="none"``."""
+    if artifact.lane_crcs is None or artifact.verify == "none":
+        return []
+    ids = range(artifact.n_tiles) if lane_ids is None else lane_ids
+    for i in ids:
+        _check_lane(artifact, i, artifact.tile_blobs[i])
+    return sorted(artifact.quarantined)
 
 
 def decode_lanes(artifact: TiledCompressed, lane_ids, *, with_mask: bool = False,

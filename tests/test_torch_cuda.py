@@ -134,10 +134,10 @@ def test_enhancer_fused_kernel_matches_plain_version(cuda, shape):
 def test_gwlz_on_the_card_matches_the_cpu(cuda):
     from repro_torch.core.pipeline import GWLZ, GWLZTrainConfig
     from repro_torch.data import nyx_like_field
-    from repro_torch.sz import TiledCompressed
+    from repro_torch.sz import SZCompressor, TiledCompressed
 
     x = nyx_like_field((32, 32, 32), "temperature", seed=7)
-    gw = GWLZ(train_cfg=GWLZTrainConfig(n_groups=4, epochs=2))
+    gw = GWLZ(sz=SZCompressor("lorenzo"), train_cfg=GWLZTrainConfig(n_groups=4, epochs=2))
     ops.reset_launches()
     art, stats = gw.compress_tiled(x, 16, rel_eb=1e-3)
     assert ops.LAUNCHES["group_hist"] > 0 and ops.LAUNCHES["enhancer_fused"] > 0
@@ -151,3 +151,41 @@ def test_gwlz_on_the_card_matches_the_cpu(cuda):
     cpu = gw.decompress_tiled(back, device="cpu")
     diff = (full.cpu() - cpu).abs()
     assert bool((diff <= 1e-5 * art.eb_abs + torch.from_numpy(np.spacing(np.abs(x)))).all())
+
+
+@pytest.mark.parametrize("shape", [(33, 17, 45), (64, 64, 64), (1, 9, 40), (70,), (9, 45), ()])
+def test_whole_volume_lorenzo_kernel_matches_plain_version(cuda, shape):
+    """Z across segment borders (32 planes a block), ragged windows, ranks
+    0-2, exact .5 ties of x / 2eb and |q| past 2^24."""
+    rng = np.random.default_rng(len(shape))
+    two = float(np.float32(0.75) * 2)
+    x = (rng.integers(-4000, 4000, shape) + 0.5) * two
+    if len(shape) == 3:
+        x[0] = rng.uniform(-1, 1, shape[1:]) * 3e8 * two
+    xt = torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+    ops.reset_launches()
+    got = ops.lorenzo_quant_op(xt, 0.75)
+    assert ops.LAUNCHES["lorenzo_quant"] == 1
+    assert torch.equal(got, ref.lorenzo_quant_ref(xt, 0.75))
+    with pytest.raises(ValueError, match="rank"):
+        ops.lorenzo_quant_op(xt.reshape(1, 1, 1, -1), 0.75)
+
+
+def test_szjx_on_the_card_matches_the_cpu(cuda, tmp_path):
+    from repro_torch import api
+    from repro_torch.sz import SZCompressor
+
+    rng = np.random.default_rng(8)
+    x = np.exp(rng.normal(8, 1, (40, 36, 28))).astype(np.float32)
+    ops.reset_launches()
+    card, recon = SZCompressor("lorenzo").compress(x, rel_eb=1e-3)
+    assert all(ops.LAUNCHES[k] > 0 for k in ("lorenzo_quant", "huffman_encode")), ops.LAUNCHES
+    assert ops.LAUNCHES["lorenzo_quant_tiles"] == 0
+    cpu, _ = SZCompressor("lorenzo").compress(x, rel_eb=1e-3, device="cpu")
+    assert card.to_bytes() == cpu.to_bytes()
+    vol = api.compress(x, eb=1e-3, predictor="lorenzo")
+    api.save(tmp_path / "v.szjx", vol)
+    with api.open(tmp_path / "v.szjx") as back:
+        full = np.asarray(back)
+        assert np.array_equal(full, recon.cpu().numpy())
+        assert np.array_equal(back[3:20, :, 5], full[3:20, :, 5])

@@ -21,6 +21,7 @@ from repro.sz import tiled as RT
 from repro.sz.szjax import SZCompressor
 from repro_torch.core import pipeline as PP
 from repro_torch.data import nyx_like_field
+from repro_torch.sz import szjax as PSZ
 from repro_torch.sz import tiled as PT
 
 TILE, REL_EB = (16, 16, 16), 1e-3
@@ -42,7 +43,7 @@ def ref_run(field):
 
 @pytest.fixture(scope="module")
 def port_run(field):
-    gw = PP.GWLZ(train_cfg=PP.GWLZTrainConfig(**CFG))
+    gw = PP.GWLZ(sz=PSZ.SZCompressor(predictor="lorenzo"), train_cfg=PP.GWLZTrainConfig(**CFG))
     art, stats = gw.compress_tiled(field, TILE, rel_eb=REL_EB, device="cpu")
     return gw, art.to_bytes(), stats
 

@@ -44,6 +44,7 @@ def test_port_imports_without_jax_in_a_fresh_interpreter():
             "import repro_torch.sz, repro_torch.exec.writer, repro_torch.data\n"
             "import repro_torch.kernels.ops, repro_torch.core.pipeline\n"
             "import repro_torch.core.convert, repro_torch.optim.schedule\n"
+            "import repro_torch.api, repro_torch.cli, repro_torch.exec.cache\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -63,6 +64,20 @@ def test_entry_points_without_device_need_cuda():
     art, _ = compress_tiled(x, 4, abs_eb=0.1, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         decompress_tiled(art)
+
+
+def test_module_constructors_without_device_need_cuda():
+    """The enhancer module and its initialisers follow the entry-point rule
+    too: without ``device`` they build on the CUDA device or raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from repro_torch.core import enhancer
+
+    for call in (lambda: enhancer.GroupEnhancers(2), lambda: enhancer.init_params(2),
+                 lambda: enhancer.init_state(2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert enhancer.GroupEnhancers(2, device="cpu").w1.device.type == "cpu"
 
 
 def test_no_try_around_kernel_launches():
@@ -97,5 +112,6 @@ def test_launch_counters_reset_and_count_only_launches():
     compress_tiled(np.ones((8, 8, 8), np.float32), 4, abs_eb=0.1, device="cpu")
     # CPU tensors run the plain versions: no kernel launched, none counted
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
-    assert set(ops.LAUNCHES) == {"lorenzo_quant_tiles", "symbol_hist", "huffman_encode",
-                                 "huffman_decode", "group_hist", "enhancer_fused"}
+    assert set(ops.LAUNCHES) == {"lorenzo_quant_tiles", "lorenzo_quant", "symbol_hist",
+                                 "huffman_encode", "huffman_decode", "group_hist",
+                                 "enhancer_fused"}
