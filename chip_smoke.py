@@ -15,11 +15,16 @@ Phases (any failure raises and the script exits non-zero):
               above 4096, short last chunks, codes longer than the 12-bit
               LUT up to the 32-bit maximum codeword, values on / below /
               above the group edges, duplicate edges, G = 1, 20 and the
-              largest G; for ``enhancer_fused`` within
+              largest G; the decode alone at chunk sizes 1 and MAX_CHUNK,
+              32-bit codes and escapes among one warp's chunks, an alphabet
+              past 4,096 symbols, int32 offsets, a zeroed and a truncated
+              stream; for ``enhancer_fused`` within
               |diff| <= 1e-5 (1 + max|plain|) (the kernel fuses multiply-adds
               the plain version rounds twice): G = 1 on 1x1 .. 64x64 slices,
               ids changing inside the halo, an inactive group, the clamp,
-              direct (non-residual) mode;
+              direct (non-residual) mode, 9 groups in one 3x3 neighbourhood,
+              20 in one block, groups changing on block borders, H or W of
+              1, G = 287 and 4,096 (and bit for bit on a subset of slices);
 3. main    -- the main path at full size: nyx_like_field((512,)*3,
               "temperature", seed=0), tile 64^3, rel_eb 1e-3, huffman+zlib,
               through compress_tiled -> to_bytes -> from_bytes ->
@@ -50,12 +55,17 @@ Phases (any failure raises and the script exits non-zero):
               enhancers trained on 512 full 512x512 slices (51 steps an
               epoch; 5 epochs, cut from 300), then save, open, full decode
               and the ROI.  Checks as for gwlz;
-8. cli     -- ``python -m repro_torch.cli`` in subprocesses on
+8. bigstream -- one SZJX Lorenzo field whose single Huffman stream is past
+              2**31 bits (integer noise on [0, 2**16) at 512^3, abs_eb 0.5,
+              ``huffman`` backend): api.compress -> save -> open -> full
+              decode on the card, within eb (1 + 1e-6) and equal to x; the
+              stream's bits are printed;
+9. cli     -- ``python -m repro_torch.cli`` in subprocesses on
               synthetic:temperature:64, tiled (tile 16) and monolithic,
               Lorenzo: compress -> info -> region -> decompress -> verify;
               the ROI equals the full crop, verify exits 0, and 1 on a copy
               with one byte of one lane flipped;
-9. kernels -- each kernel again at its path's shapes: against its plain
+10. kernels -- each kernel again at its path's shapes: against its plain
               version, then timed (see ``kernel_ms`` and
               ``launch_events_ms``) beside the plain version, a library call
               where one exists, and the bound (the larger of bytes over
@@ -63,10 +73,12 @@ Phases (any failure raises and the script exits non-zero):
               the operations this run's group ids need, see
               ``enhancer_flop``); group_hist and enhancer_fused on both
               gwlz runs' decodes; huffman_decode and enhancer_fused also at
-              the monolithic shapes (``mono``);
-10. cpu    -- the 128^3 corner compressed on the card and on the CPU gives
+              the monolithic shapes (``mono``); the two kernels redesigned
+              since their first version also print that version's time
+              (``ms_pr13``, from PERF.md);
+11. cpu    -- the 128^3 corner compressed on the card and on the CPU gives
               identical GWTC bytes;
-11. golden -- tests/golden/gwtc_v1.bin and szjx_lorenzo.bin decode on the
+12. golden -- tests/golden/gwtc_v1.bin and szjx_lorenzo.bin decode on the
               card bit for bit.
 
 Each phase prints a JSON line.  Then come the ``kernels`` line, the card's
@@ -94,6 +106,7 @@ GWLZ_EPOCHS = 1  # the paper trains 300 epochs (~1M steps at 512^3): no smoke
 MONO_EPOCHS = 5  # gwlz_mono: 51 steps an epoch on 512 slices of 512x512
 GWLZ_FIELDS = {"gwlz": "temperature", "gwlz_all_groups": "velocity_x"}  # phase -> field
 ROI = ((100, 228), (37, 101), (300, 364))
+BIG_EB = 0.5  # bigstream: integer noise on [0, 2**16), ~17.7 bits a value, > 2**31 bits
 KERNELS = {  # counter name -> (source, TPU kernel it replaces, __global__ name prefix)
     "lorenzo_quant_tiles": ("src/repro_torch/csrc/lorenzo_quant.cu",
                             "src/repro/kernels/lorenzo_quant.py:87",
@@ -119,6 +132,12 @@ SZJX_KERNELS = ("lorenzo_quant", "huffman_encode", "huffman_decode")  # needed o
 LAUNCH_PATH = {**{k: "main" for k in KERNELS}, "lorenzo_quant": "szjx",
                **{k: "gwlz" for k in GWLZ_KERNELS}}
 ENHANCE_RTOL = 1e-5  # |kernel - plain| <= ENHANCE_RTOL * (1 + max|plain|)
+# the first versions' times of the two kernels redesigned since, at each
+# shape of their rows (PERF.md: this script's earlier runs on an NVIDIA H100
+# 80GB HBM3 at 700.00 W), printed as ``ms_pr13`` beside the new times
+FIRST_VERSION_MS = {"huffman_decode": {"ms": 0.0658, "mono": 4.821},
+                    "enhancer_fused": {"ms": 14.24, "g1": 14.04, "all_groups": 11.13,
+                                       "mono": 14.29}}
 
 
 def emit(obj) -> None:
@@ -369,6 +388,49 @@ def edge_parity(par: Parity) -> None:
         got = torch.from_numpy(codec.alphabet).to(dev)[ids.reshape(-1)[: sym.size]]
         check(torch.equal(got, flat), f"huffman round trip [{case}] lost symbols")
 
+    # the decode alone, on streams packed by the plain encode (any chunk
+    # size): chunk sizes 1 and MAX_CHUNK (a chunk overruns its warp's staged
+    # words), 32-bit codes and LUT escapes among one warp's chunks, an
+    # alphabet past the shared-memory escape tables, int32 offsets, and a
+    # zeroed or truncated stream, which must still end
+    skew = np.repeat(np.arange(17, dtype=np.int32),
+                     np.minimum([2 ** i for i in range(15, 0, -1)] + [1, 1], 4096))
+    rng.shuffle(skew)
+    skew_codec = entropy.HuffmanCodec.fit(torch.from_numpy(skew))
+    L32 = entropy._limited_code_lengths(np.asarray(fib, np.int64))
+    codec32 = entropy.HuffmanCodec(np.arange(L32.size, dtype=np.int32), L32,
+                                   entropy._canonical_codes(L32))
+    mixed = rng.choice(np.arange(8, dtype=np.int32), 64 * 40)
+    mixed[::97], mixed[5::61] = L32.size - 1, L32.size - 3
+    wide = rng.integers(0, 70000, 300001).astype(np.int32)
+    for case, (codec, sym, cs, damage) in {
+        "cs1": (skew_codec, skew[:3001], 1, None),
+        "cs256_int32_offsets": (skew_codec, skew, 256, "int32"),
+        f"cs{huffman_encode.MAX_CHUNK}": (skew_codec, np.concatenate([skew, skew[:777]]),
+                                          huffman_encode.MAX_CHUNK, None),
+        "codes32_and_escapes_in_a_warp": (codec32, mixed, 40, None),
+        "short_last_chunk": (skew_codec, skew[: 256 * 37 + 3], 256, None),
+        "wide_alphabet": (None, wide, 256, None),
+        "zeroed_stream": (skew_codec, skew, 256, "zero"),
+        "truncated_stream": (skew_codec, skew, 256, "truncate"),
+    }.items():
+        codec = codec or entropy.HuffmanCodec.fit(torch.from_numpy(sym))
+        stream, bits64, _ = codec._device_pack(torch.from_numpy(sym), cs)  # plain encode
+        args, kw = codec._decode_inputs(stream, sym.size, cs, np.cumsum(bits64) - bits64, dev)
+        args = list(args)
+        if damage == "int32":
+            args[1] = args[1].to(torch.int32)
+        elif damage == "zero":
+            args[0] = torch.zeros_like(args[0])
+        elif damage == "truncate":
+            args[0] = args[0][: args[0].numel() // 3].clone()
+            args[0][-2:] = 0
+        ids = huffman_decode.huffman_decode_probe(*args, **kw)
+        par.compare("huffman_decode", case, ids, ref.huffman_decode_ref(*args, **kw))
+        if damage in (None, "int32"):
+            check(np.array_equal(codec.alphabet[ids.reshape(-1)[: sym.size].cpu().numpy()],
+                                 sym), f"huffman decode [{case}] lost symbols")
+
     # group_hist: values on every edge, below the first and above the last,
     # duplicate edges, G = 1, 20 and the largest G, sizes off the block
     for case, (G, n) in {"G1": (1, 1000), "G20_dup_edges": (20, 262147),
@@ -422,6 +484,41 @@ def edge_parity(par: Parity) -> None:
             check(torch.equal(got[ids == 3], xt[ids == 3]), "an inactive group changed x")
         if clamp is not None:
             check(bool(((got - xt).abs() <= clamp + 1e-6).all()), "the clamp let a value out")
+    # the grouped kernel on the edges of its design: 9 groups in one 3x3
+    # neighbourhood, all 20 in one block, groups changing on block and halo
+    # borders, H or W of 1, sizes off the 32-wide block, G = 287 and the
+    # launcher's maximum; each also bit for bit against a launch on a subset
+    # of the slices
+    for case, (G, shape) in {"nine_groups_a_neighbourhood": (9, (2, 40, 70)),
+                             "twenty_groups_a_block": (20, (3, 32, 32)),
+                             "groups_change_on_block_borders": (4, (2, 70, 90)),
+                             "height_1": (3, (4, 1, 77)), "width_1": (3, (4, 77, 1)),
+                             "off_block_sizes": (5, (3, 45, 33)), "G287": (287, (2, 64, 96)),
+                             f"G{enhancer_fused.MAX_GROUPS}":
+                             (enhancer_fused.MAX_GROUPS, (2, 64, 64))}.items():
+        yy, xx = np.meshgrid(np.arange(shape[1]), np.arange(shape[2]), indexing="ij")
+        if case == "nine_groups_a_neighbourhood":
+            g_np = np.broadcast_to((yy % 3) * 3 + xx % 3, shape)
+        elif case == "groups_change_on_block_borders":
+            g_np = np.broadcast_to((xx // 32 + yy // 32 + (xx % 32 == 31)) % G, shape)
+        else:
+            g_np = rng.integers(0, G, shape)
+        gt = torch.from_numpy(np.ascontiguousarray(g_np, np.int32)).to(dev)
+        if case == "twenty_groups_a_block":
+            check(torch.unique(gt[0]).numel() == 20, "a block must hold all 20 groups")
+        rs = f(G).abs() + 0.01
+        rs[0] = 0.0
+        pk = enhancer_fused.pack_enhancers(
+            torch.from_numpy(np.sort(rng.normal(0, 1, G)).astype(np.float32)).to(dev),
+            f(G).abs() + 0.1, f(G), rs, f(G, 9, C), f(G, C), f(G, C).abs() + 0.5, f(G, C),
+            f(G, 9, C))
+        xt = f(*shape, scale=1.0)
+        for mode in ("pred", "residual"):
+            got = enhancer_fused.enhancer_grouped(xt, gt, pk, mode=mode)
+            par.compare_float("enhancer_fused", f"{case}_{mode}", got,
+                              ref.enhancer_grouped_ref(xt, gt, pk, mode=mode), ENHANCE_RTOL)
+            check(torch.equal(enhancer_fused.enhancer_grouped(xt[1:], gt[1:], pk, mode=mode),
+                              got[1:]), f"enhancer_fused [{case}] differs on a subset")
     emit({"phase": "edges", "cases": par.cases, "max_abs_err": par.err,
           "float_tolerance": {k: v for k, v in par.tol.items() if v}})
 
@@ -586,6 +683,56 @@ def szjx_path(x_np, tmp: Path):
           "container_bytes": n, "max_abs_err": err, "corner_bytes_identical": True,
           "symbols": int(np.prod(SHAPE)), "launches": launches})
     return art, launches
+
+
+def bigstream_path(tmp: Path):
+    """One SZJX Lorenzo field whose single Huffman stream is past 2**31 bits:
+    integer noise, uniform on [0, 2**16), at 512^3 with abs_eb 0.5 (~17.7
+    bits a value), through the façade with the ``huffman`` backend (no host
+    zlib), decoded on the card.  Integers keep 2eb q exact in float32, so the
+    decode must give x back; on [0, 1) noise at the same bits a value the
+    float32 rounding of 2eb q alone reaches 0.6% of eb, and the error 1.0014
+    eb was measured (PERF.md)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.sz import entropy
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(0, 2**16, SHAPE, generator=gen, device="cuda").to(torch.float32)
+    path = tmp / "noise.szjx"
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vol = api.compress(x, abs_eb=BIG_EB, predictor="lorenzo", backend="huffman")
+    api.save(path, vol)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    del vol
+    with api.open(path) as back:
+        full = np.asarray(back)
+        t2 = time.perf_counter()
+        art = back.artifact
+    launches = dict(ops.LAUNCHES)
+    codec, n_sym, cs, chunk_bits, _, total = entropy.parse_chunked(art.code_blob)
+    check(total >= 2**31, f"the stream has {total} bits, not past 2**31")
+    out = torch.from_numpy(full.copy()).cuda()
+    err = float((x.double() - out.double()).abs().max())
+    check(full.shape == SHAPE and bool(torch.isfinite(out).all()), "bigstream decode shape")
+    check(err <= art.eb_abs * (1 + 1e-6), f"bigstream error {err} above eb {art.eb_abs}")
+    check(torch.equal(out, x), "bigstream decode is not the integer field")
+    check(launches["huffman_decode"] > 0 and launches["huffman_encode"] > 0,
+          f"a bigstream kernel never launched: {launches}")
+    emit({"phase": "bigstream", "field": "integers uniform on [0, 2**16), torch seed 0",
+          "shape": list(SHAPE), "abs_eb": BIG_EB, "backend": "huffman",
+          "eb_abs": art.eb_abs, "stream_bits": int(total),
+          "bits_per_value": total / n_sym, "chunks": int(np.asarray(chunk_bits).size),
+          "alphabet": int(codec.alphabet.size), "longest_code": int(codec.lengths.max()),
+          "compress_s": t1 - t0, "decompress_s": t2 - t1, "max_abs_err": err,
+          "container_bytes": path.stat().st_size, "launches": launches})
+    return launches
 
 
 def gwlz_mono_path(x_np, tmp: Path):
@@ -1000,6 +1147,8 @@ def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
                     "launches_by_path": {p: ls[name] for p, ls in path_launches.items()},
                     **({"tolerance": par.tol[name]} if par.tol[name] else {}),
                     **{k: r[k] for k in ("flop", "g1", "all_groups", "mono") if k in r}})
+        for shape, ms in FIRST_VERSION_MS.get(name, {}).items():
+            (out[-1] if shape == "ms" else out[-1][shape])["ms_pr13"] = ms
     return out
 
 
@@ -1078,9 +1227,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sz_art, sz_launches = szjx_path(x_np, Path(tmp))
         mono = gwlz_mono_path(x_np, Path(tmp))
+        big_launches = bigstream_path(Path(tmp))
         cli_path(Path(tmp))
     path_launches = {"main": launches, "gwlz": gw["gwlz"][2], "szjx": sz_launches,
-                     "gwlz_mono": mono[2]}
+                     "gwlz_mono": mono[2], "bigstream": big_launches}
+    check(all(path_launches[p]["huffman_decode"] > 0 for p in ("main", "gwlz", "szjx",
+                                                                "gwlz_mono", "bigstream")),
+          "huffman_decode missed a path")
+    check(all(ls["enhancer_fused"] > 0 for ls in (gw["gwlz"][2], gw["gwlz_all_groups"][2],
+                                                 mono[2])), "enhancer_fused missed a path")
     with torch.no_grad():  # the model's parameters must not build autograd graphs here
         rows = kernel_rows(par, x_np, art, path_launches, gw, sz_art, mono)
     cpu_vs_card(x_np)

@@ -11,57 +11,142 @@
 //   0  pred                              (raw; the gate and the G = 1 op)
 //   1  x + pred * rscale_g, x where rscale_g == 0   (residual learning)
 //   2  pred * scale_g + lo_g             (direct prediction)
-// and, with `clamp`, a clip to [x - eb, x + eb].  The reference runs all G
-// models over every pixel and masks; this kernel runs only the pixel's own
-// model over its 5x5 receptive field.
+// and, with `clamp`, a clip to [x - eb, x + eb].  Borders: conv1's input is
+// 0 outside the slice (and off the group); conv2's input h is 0 outside the
+// slice.  Inside the slice h is the model's hidden value whatever the
+// neighbour's group, as in the reference.
 //
-// Borders: conv1's input is 0 outside the slice (and off the group); conv2's
-// input h is 0 outside the slice.  Inside the slice h is the model's hidden
-// value whatever the neighbour's group, as in the reference.
+// What bounds it on the H100: operations, at the float32 rate of the CUDA
+// cores (TF32 or bf16 tensor cores would break the 1e-5 relative
+// tolerance).  The function needs each hidden value h_{g,c}(q) (9 FMAs)
+// once for every cell q and group g of an output pixel in q's 3x3
+// neighbourhood, plus 9C FMAs of conv2 a pixel whose group has an output.
+// The first version computed, for each pixel, the 9 h of its neighbours
+// (810 FMA a pixel at C = 9) from 25 inputs it divided itself (25 IEEE
+// divisions a pixel), and ran the whole model for residual pixels whose
+// group has no output (rscale 0).
 //
-// What bounds it on the H100: operations.  The function needs each hidden
-// value h_g(q) (9C FMAs) once per pixel q and group g of q's 3x3
-// neighbourhood, plus 9C FMAs of conv2 a pixel: 162 FMA a pixel at C = 9
-// where a neighbourhood is one group, 2^27 pixels in ~0.65 ms at 67 TFLOP/s
-// (the bytes, x, ids and out, take ~0.48 ms).  This kernel recomputes each
-// h for each of the 9 pixels that read it, 9 x 9C + 9C = 810 FMA a pixel:
-// five times that work.
+// Design: one block per (slice, 32x32 output block), 32x8 threads; a
+// thread owns four vertically adjacent output pixels of one column.
+//   1. The window (block plus a 2-cell halo, 36x36) is staged once in
+//      shared memory as (v, id) pairs, v = (x - lo_id) / scale_id by
+//      __fdiv_rn: one IEEE division a cell (1.27 a pixel), not 25 a pixel.
+//      The masked input of group g at a cell is (id == g ? v : 0), the same
+//      bits the first version got from its own division.
+//   2. Pixels whose group has no output (residual, rscale 0) take x and
+//      skip the model.  The block's groups with an output are collected.
+//   3a. A block with one or two such groups (the common case: the gwlz
+//      cells hold 1-2 live groups a block) runs one pass a group: units of
+//      4 ring cells down a column whose cells a pixel of the group reads
+//      compute h_{g,c} from their 6x3 masked inputs in registers, once,
+//      into shared memory (5 channels at a time, 34 x 34 cells each); then
+//      each pixel of the group adds its 9 taps a channel, a thread's four
+//      rows reading one 6x3 patch when they share the group.  The group's
+//      weights are warp-uniform rows of a transposed table the launcher
+//      builds (three 16-byte loads a channel for conv1, three for conv2).
+//   3b. A block with more groups (the 20-group gate on a noisy field: 6.6
+//      groups in a 3x3 neighbourhood, so little h is shared) runs each
+//      pixel through its own group's model over its 5x5 inputs, as the
+//      first version did, from the staged window (no divisions), with the
+//      table staged in shared memory at an odd row stride (lanes of
+//      different groups read different banks) when it fits in 24 KB.
+//   The table has any number of rows (groups up to group_hist's 4,096).
+//   Registers are held to 64 (four blocks of 256 threads an SM).
+// Measured on the way (PERF.md): passes over every group, one
+// group's h in shared memory at a time, took 76 ms on the 20-group gate;
+// compacted (group, strip) units with per-pass lists 16.5 ms on the
+// tiled decode's launch; register runs of 1-4 rows 20 ms there (its two
+// groups alternate pixel by pixel); splitting 3b into its own kernel cost
+// a second window load.
 //
-// Design: one block per (slice, 32x32 output block), 32x8 threads, four
-// output rows a thread.  The block stages x and ids for its block plus a
-// 2-cell halo (36x36) in shared memory, and every group's packed parameters
-// ([G, 4 + 21C] floats: lo, scale, b2, rscale, w1[9][C], b1, bn scale,
-// bn shift, w2[9][C]).  A thread gathers its pixel's 25 normalised inputs
-// into registers (25 IEEE divisions, __fdiv_rn), then for each channel
-// loads that channel's 9 conv1 taps once and reuses them for the 9
-// neighbours.  Each pixel is computed in one fixed loop order, so any
-// subset of slices enhances bit-identically to the full batch (the region
-// decode relies on it).  Built without --use_fast_math; the residual and
-// direct epilogues use __fmul_rn/__fadd_rn so nothing is contracted there.
+// The arithmetic order of each output is that of the first version, so the
+// output is bit-identical to it: conv1 taps k = 0..8 as fmaf from 0, then
+// + b1, then fmaf(a, bn scale, bn shift), ReLU (h < 0 ? 0 : h, NaN
+// propagating), h = 0 off the slice; conv2 with channels outer and the 9
+// neighbours inner (d2 = 0..8), acc = fmaf(w2, h, acc) from 0, then + b2;
+// the residual and direct epilogues with __fmul_rn / __fadd_rn so nothing
+// is contracted there.  No value depends on which block or which subset of
+// slices computes it, so any subset of slices enhances bit-identically to
+// the full batch (the region decode relies on it).  Built without
+// --use_fast_math.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BX = 32;           // output block width  (threads in x)
-constexpr int BY = 8;            // threads in y
-constexpr int ROWS = 4;          // output rows per thread: block height BY * ROWS
-constexpr int BH = BY * ROWS;    // 32
-constexpr int WIN_W = BX + 4;    // 2-cell halo each side
+constexpr int BX = 32;            // output block width (threads in x)
+constexpr int BY = 8;             // threads in y
+constexpr int ROWS = 4;           // adjacent output rows a thread: its quad
+constexpr int BH = BY * ROWS;     // 32
+constexpr int THREADS = BX * BY;
+constexpr int WIN_W = BX + 4;     // 2-cell halo each side
 constexpr int WIN_H = BH + 4;
 constexpr int WIN = WIN_W * WIN_H;
+constexpr int RING_W = BX + 2;    // cells whose h the block reads: a 1-cell ring
+constexpr int CELLS = RING_W * (BH + 2);   // 1156
+constexpr int STRIP = 4;          // cells of a unit, down one ring column
+constexpr int STRIPS = RING_W * 9;         // 306 units cover ring rows 0..35
+constexpr int CCMAX = 5;          // channels of h held at once (four blocks an SM)
+constexpr int TAB_SMEM = 24 * 1024;  // the staged table's room (G = 20 at C = 9 takes 17.7 KB)
 
-__global__ void __launch_bounds__(BX * BY)
+
+// Kernel table row of a group: lo, scale, b2, rscale, then per channel
+// w1[9], b1, bn scale, bn shift, w2[9] and 3 zeros (24 floats).
+__host__ __device__ constexpr int row_floats(int C) { return 4 + 24 * C; }
+
+__device__ __forceinline__ float clamp_to(float o, float xv, float eb) {
+  const float lo_b = xv - eb, hi_b = xv + eb;
+  o = o < lo_b ? lo_b : o;
+  return o > hi_b ? hi_b : o;
+}
+
+__device__ __forceinline__ void store(const float* xs, float* os, size_t at, const float* grow,
+                                      float acc, int mode, int clamp, float eb) {
+  const float pred = acc + grow[2];
+  const float xv = xs[at];
+  float o = pred;
+  if (mode == 1) {
+    const float rs = grow[3];
+    o = rs == 0.f ? xv : __fadd_rn(xv, __fmul_rn(pred, rs));
+  } else if (mode == 2) {
+    o = __fadd_rn(__fmul_rn(pred, grow[1]), grow[0]);
+  }
+  os[at] = clamp ? clamp_to(o, xv, eb) : o;
+}
+
+// channel c of a table row: conv1 (w1[9], b1, bn scale, bn shift) and conv2 (w2[9])
+struct Conv1 {
+  float w[9], b1, sc, sh;
+};
+
+__device__ __forceinline__ Conv1 conv1_taps(const float* grow, int c) {
+  const float4* p = reinterpret_cast<const float4*>(grow + 4 + 24 * c);
+  const float4 a0 = p[0], a1 = p[1], a2 = p[2];
+  return Conv1{{a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2.x}, a2.y, a2.z, a2.w};
+}
+
+struct Conv2 {
+  float w[9];
+};
+
+__device__ __forceinline__ Conv2 conv2_taps(const float* grow, int c) {
+  const float4* p = reinterpret_cast<const float4*>(grow + 4 + 24 * c + 12);
+  const float4 b0 = p[0], b1 = p[1];
+  return Conv2{{b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w, grow[4 + 24 * c + 20]}};
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
 enhancer_grouped_kernel(const float* __restrict__ x, const int32_t* __restrict__ ids,
-                        int H, int W, int nbx, int nby,
-                        const float* __restrict__ params, int G, int C, int mode,
-                        int clamp, float eb, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int P = 4 + 21 * C;
-  float* prm = smem;                    // [G, P]
-  float* xw = prm + G * P;              // [WIN_H, WIN_W] x
-  int* iw = reinterpret_cast<int*>(xw + WIN);  // [WIN_H, WIN_W] group id, -1 outside
+                        int H, int W, int nbx, int nby, const float* __restrict__ table,
+                        int G, int C, int tab_staged, int mode, int clamp, float eb,
+                        float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float2* win = reinterpret_cast<float2*>(smem4);          // [WIN_H, WIN_W] (v, id)
+  float* hbuf = reinterpret_cast<float*>(win + WIN);       // [CCMAX, 34, 34]
+  float* tab_s = hbuf + CCMAX * CELLS;                     // [G, PG] when staged
+  __shared__ int s_slot[2], s_many;
+  const int PG = row_floats(C);
 
   const int tid = threadIdx.y * BX + threadIdx.x;
   const long long blk = blockIdx.x;
@@ -72,111 +157,224 @@ enhancer_grouped_kernel(const float* __restrict__ x, const int32_t* __restrict__
   const size_t plane = static_cast<size_t>(H) * W;
   const float* xs = x + static_cast<size_t>(b) * plane;
   const int32_t* is = ids ? ids + static_cast<size_t>(b) * plane : nullptr;
+  float* os = out + static_cast<size_t>(b) * plane;
 
-  for (int i = tid; i < G * P; i += BX * BY) prm[i] = params[i];
-  for (int i = tid; i < WIN; i += BX * BY) {
+  // 1. the window: normalised value and group of each cell, id -1 off the slice
+  for (int i = tid; i < WIN; i += THREADS) {
     const int gy = y0 - 2 + i / WIN_W, gx = x0 - 2 + i % WIN_W;
     const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    const size_t at = static_cast<size_t>(gy) * W + gx;
-    xw[i] = inside ? xs[at] : 0.f;
-    int g = inside ? (is ? is[at] : 0) : -1;
-    if (inside) g = g < 0 ? 0 : (g > G - 1 ? G - 1 : g);
-    iw[i] = g;
+    float v = 0.f;
+    int g = -1;
+    if (inside) {
+      const size_t at = static_cast<size_t>(gy) * W + gx;
+      g = is ? is[at] : 0;
+      g = g < 0 ? 0 : (g > G - 1 ? G - 1 : g);
+      const float* grow = table + static_cast<size_t>(g) * PG;
+      v = __fdiv_rn(xs[at] - __ldg(grow), __ldg(grow + 1));
+    }
+    win[i] = make_float2(v, __int_as_float(g));
+  }
+  if (tid < 2) s_slot[tid] = -1;
+  if (tid == 0) s_many = 0;
+  __syncthreads();
+
+  // 2. this thread's quad: column tx, block rows py0 .. py0 + 3; g = the
+  // row's group if its pixel is in the slice and has an output, else -1.
+  // The block's groups with an output go to two slots, or set s_many.
+  const int tx = threadIdx.x, py0 = threadIdx.y * ROWS;
+  const int gx = x0 + tx;
+  int g[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    int gr = __float_as_int(win[(py0 + r + 2) * WIN_W + tx + 2].y);
+    const size_t at = static_cast<size_t>(y0 + py0 + r) * W + gx;
+    if (gr >= 0 && mode == 1 && __ldg(table + static_cast<size_t>(gr) * PG + 3) == 0.f) {
+      const float xv = xs[at];  // residual with rscale 0: the output is x
+      os[at] = clamp ? clamp_to(xv, xv, eb) : xv;
+      gr = -1;
+    }
+    g[r] = gr;
+    if (gr >= 0 && (r == 0 || gr != g[r - 1])) {
+      const int k0 = atomicCAS(&s_slot[0], -1, gr);
+      if (k0 != -1 && k0 != gr) {
+        const int k1 = atomicCAS(&s_slot[1], -1, gr);
+        if (k1 != -1 && k1 != gr) s_many = 1;
+      }
+    }
   }
   __syncthreads();
 
-  const int tx = threadIdx.x;
-  const int gx = x0 + tx;
+  if (!s_many) {
+    // 3a. at most two groups: per group, h of every ring cell whose strip a
+    // pixel of the group reads, once, in shared memory; then the taps
+    for (int k = 0; k < 2; ++k) {
+      const int gk = s_slot[k];
+      if (gk < 0) break;
+      const float* grow = table + static_cast<size_t>(gk) * PG;
+      float acc[ROWS] = {0.f, 0.f, 0.f, 0.f};
+      const bool uni = g[0] == gk && g[1] == gk && g[2] == gk && g[3] == gk;
+      for (int c0 = 0; c0 < C; c0 += CCMAX) {
+        const int ncc = min(CCMAX, C - c0);
+        for (int u = tid; u < STRIPS; u += THREADS) {
+          const int qx = u % RING_W - 1, qy0 = (u / RING_W) * STRIP - 1;  // block coordinates
+          float xin[STRIP + 2][3];
+          bool need = false;
+#pragma unroll
+          for (int j = 0; j < STRIP + 2; ++j)
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              const int wy = qy0 + 1 + j, wx = qx + 1 + d;  // window coordinates
+              const float2 cell = wy < WIN_H ? win[wy * WIN_W + wx]
+                                             : make_float2(0.f, __int_as_float(-1));
+              const bool mine = __float_as_int(cell.y) == gk;
+              need |= mine && wy >= 2 && wy < BH + 2 && wx >= 2 && wx < BX + 2;
+              xin[j][d] = mine ? cell.x : 0.f;
+            }
+          if (!need) continue;
+          const bool col_in = x0 + qx >= 0 && x0 + qx < W;
+          for (int cl = 0; cl < ncc; ++cl) {
+            const Conv1 t = conv1_taps(grow, c0 + cl);
+            float* hc = hbuf + cl * CELLS + qx + 1;
+#pragma unroll
+            for (int j = 0; j < STRIP; ++j) {
+              const int qy = qy0 + j;
+              if (qy > BH) break;
+              float a = 0.f;
+#pragma unroll
+              for (int kk = 0; kk < 9; ++kk) a = fmaf(t.w[kk], xin[j + kk / 3][kk % 3], a);
+              a = a + t.b1;
+              float h = fmaf(a, t.sc, t.sh);
+              h = h < 0.f ? 0.f : h;  // ReLU; NaN propagates as in torch.relu
+              hc[(qy + 1) * RING_W] = col_in && y0 + qy >= 0 && y0 + qy < H ? h : 0.f;
+            }
+          }
+        }
+        __syncthreads();
+        for (int cl = 0; cl < ncc; ++cl) {
+          const Conv2 t = conv2_taps(grow, c0 + cl);
+          // ring row py0 is block row py0 - 1
+          const float* hc = hbuf + cl * CELLS + py0 * RING_W + tx;
+          if (uni) {
+            float hv[ROWS + 2][3];
+#pragma unroll
+            for (int j = 0; j < ROWS + 2; ++j)
+#pragma unroll
+              for (int d = 0; d < 3; ++d) hv[j][d] = hc[j * RING_W + d];
+#pragma unroll
+            for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+              for (int d2 = 0; d2 < 9; ++d2)
+                acc[r] = fmaf(t.w[d2], hv[r + d2 / 3][d2 % 3], acc[r]);
+          } else {
+#pragma unroll
+            for (int r = 0; r < ROWS; ++r) {
+              if (g[r] != gk) continue;
+#pragma unroll
+              for (int d2 = 0; d2 < 9; ++d2)
+                acc[r] = fmaf(t.w[d2], hc[(r + d2 / 3) * RING_W + d2 % 3], acc[r]);
+            }
+          }
+        }
+        __syncthreads();  // before h is rewritten
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        if (g[r] == gk)
+          store(xs, os, static_cast<size_t>(y0 + py0 + r) * W + gx, grow, acc[r], mode, clamp,
+                eb);
+    }
+    return;
+  }
+
+  // 3b. many groups: each pixel through its own group's model over its 5x5
+  // inputs, the first version's loop without its 25 divisions; the table
+  // is staged in shared memory when it fits
+  // (rows 4 + 24C + 1 floats apart: an odd stride puts the lanes' rows of
+  // different groups on different banks)
+  const float* tab = table;
+  int stride = PG;
+  if (tab_staged) {
+    for (int gg = tid / 32; gg < G; gg += THREADS / 32)
+      for (int j = tid % 32; j < PG; j += 32)
+        tab_s[gg * (PG + 1) + j] = __ldg(table + static_cast<size_t>(gg) * PG + j);
+    tab = tab_s;
+    stride = PG + 1;
+  }
+  __syncthreads();
 #pragma unroll 1
   for (int r = 0; r < ROWS; ++r) {
-    const int py = threadIdx.y + BY * r;
-    const int gy = y0 + py;
-    if (gy >= H || gx >= W) continue;
-    const int center = (py + 2) * WIN_W + tx + 2;
-    const int g = iw[center];
-    const float* pg = prm + g * P;
-    const float lo = pg[0], sc = pg[1];
-
-    float xin[25];  // the 5x5 normalised, masked input around the pixel
+    const int gr = r == 0 ? g[0] : r == 1 ? g[1] : r == 2 ? g[2] : g[3];
+    if (gr < 0) continue;
+    const int py = py0 + r, gy = y0 + py;
+    float xin[25];
 #pragma unroll
     for (int dy = 0; dy < 5; ++dy)
 #pragma unroll
       for (int dx = 0; dx < 5; ++dx) {
-        const int w = (py + dy) * WIN_W + tx + dx;
-        xin[dy * 5 + dx] = (iw[w] == g) ? __fdiv_rn(xw[w] - lo, sc) : 0.f;
+        const float2 cell = win[(py + dy) * WIN_W + tx + dx];
+        xin[dy * 5 + dx] = __float_as_int(cell.y) == gr ? cell.x : 0.f;
       }
-    bool qin[9];  // neighbour q = p + (dy2 - 1, dx2 - 1) lies in the slice
+    bool qin[9];
 #pragma unroll
     for (int d2 = 0; d2 < 9; ++d2) {
       const int qy = gy + d2 / 3 - 1, qx = gx + d2 % 3 - 1;
       qin[d2] = qy >= 0 && qy < H && qx >= 0 && qx < W;
     }
-
-    const float* w1 = pg + 4;
-    const float* b1 = w1 + 9 * C;
-    const float* bs = b1 + C;
-    const float* bt = bs + C;
-    const float* w2 = bt + C;
+    const float* grow = tab + static_cast<size_t>(gr) * stride;
     float acc = 0.f;
 #pragma unroll 1
     for (int c = 0; c < C; ++c) {
+      const float* pc = grow + 4 + 24 * c;  // w1[9], b1, bn scale, bn shift, w2[9]
       float w[9];
 #pragma unroll
-      for (int k = 0; k < 9; ++k) w[k] = w1[k * C + c];
-      const float bc = b1[c], s = bs[c], t = bt[c];
+      for (int kk = 0; kk < 9; ++kk) w[kk] = pc[kk];
+      const float bc = pc[9], sc = pc[10], sh = pc[11];
 #pragma unroll
       for (int d2 = 0; d2 < 9; ++d2) {
         float a = 0.f;
 #pragma unroll
-        for (int k = 0; k < 9; ++k)
-          a = fmaf(w[k], xin[(d2 / 3 + k / 3) * 5 + d2 % 3 + k % 3], a);
+        for (int kk = 0; kk < 9; ++kk)
+          a = fmaf(w[kk], xin[(d2 / 3 + kk / 3) * 5 + d2 % 3 + kk % 3], a);
         a = a + bc;
-        float h = fmaf(a, s, t);
+        float h = fmaf(a, sc, sh);
         h = h < 0.f ? 0.f : h;  // ReLU; NaN propagates as in torch.relu
         h = qin[d2] ? h : 0.f;
-        acc = fmaf(w2[d2 * C + c], h, acc);
+        acc = fmaf(pc[12 + d2], h, acc);
       }
     }
-    const float pred = acc + pg[2];
-
-    const float xv = xw[center];
-    float o = pred;
-    if (mode == 1) {
-      const float rs = pg[3];
-      o = rs == 0.f ? xv : __fadd_rn(xv, __fmul_rn(pred, rs));
-    } else if (mode == 2) {
-      o = __fadd_rn(__fmul_rn(pred, sc), lo);
-    }
-    if (clamp) {
-      const float lo_b = xv - eb, hi_b = xv + eb;
-      o = o < lo_b ? lo_b : o;
-      o = o > hi_b ? hi_b : o;
-    }
-    out[static_cast<size_t>(b) * plane + static_cast<size_t>(gy) * W + gx] = o;
+    store(xs, os, static_cast<size_t>(gy) * W + gx, grow, acc, mode, clamp, eb);
   }
+}
+
+// The launch's dynamic shared memory: the window, h of 9 channels over the
+// ring, and the kernel table when it fits (kernels/enhancer_fused.py
+// mirrors it).
+size_t enhancer_smem(int G, int C, int* staged) {
+  const size_t tab = sizeof(float) * static_cast<size_t>(G) * (row_floats(C) + 1);
+  *staged = tab <= TAB_SMEM;
+  return sizeof(float2) * WIN + sizeof(float) * CCMAX * CELLS + (*staged ? tab : 0);
 }
 
 }  // namespace
 
 extern "C" int enhancer_grouped(const void* x, const void* ids, long long B, int H, int W,
-                                const void* params, int G, int C, int mode, int clamp,
+                                const void* table, int G, int C, int mode, int clamp,
                                 float eb, void* out, void* stream) {
   if (G <= 0 || C <= 0 || mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   const int nbx = (W + BX - 1) / BX;
   const int nby = (H + BH - 1) / BH;
   const long long blocks = B * nbx * nby;
   if (blocks <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = (static_cast<size_t>(G) * (4 + 21 * C) + WIN) * sizeof(float) +
-                      WIN * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        enhancer_grouped_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  int staged = 0;
+  const size_t smem = enhancer_smem(G, C, &staged);
+  const cudaError_t e = cudaFuncSetAttribute(
+      enhancer_grouped_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
   enhancer_grouped_kernel<<<static_cast<unsigned>(blocks), dim3(BX, BY), smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int32_t*>(ids), H, W, nbx, nby,
-      static_cast<const float*>(params), G, C, mode, clamp, eb, static_cast<float*>(out));
+      static_cast<const float*>(table), G, C, staged, mode, clamp, eb,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,11 +3,13 @@ replaces ``repro/kernels/enhancer_fused.py::enhancer_fused``).  Plain
 version: ``ref.enhancer_grouped_ref``.
 
 The G enhancers travel as one packed float32 table ``[G, 4 + 21C]`` (see
-:func:`pack_enhancers`), which the kernel copies into shared memory; this
-module owns that layout, and the plain version reads it from here."""
+:func:`pack_enhancers`); this module owns that layout, and the plain
+version reads it from here.  The kernel reads each group's weights as one
+row of a transposed copy, :func:`kernel_table`, built for every launch."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -16,8 +18,35 @@ from repro_torch.kernels import _build
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p)
-SMEM_BYTES = 227 * 1024  # an H100 block's shared memory
-_WINDOW_BYTES = 2 * 36 * 36 * 4  # x and ids of a 32x32 block with its 2-cell halo
+MAX_GROUPS = 4096  # as the group_hist kernel that assigns the groups
+
+
+def _table_columns(C: int) -> list[int]:
+    """Columns of a packed row that make a kernel-table row: lo, scale, b2,
+    rscale, then per channel c: w1[0..8][c], b1[c], bn scale[c], bn
+    shift[c], w2[0..8][c] and three pads (column 4 + 21C, a zero)."""
+    cols = [0, 1, 2, 3]
+    for c in range(C):
+        cols += [4 + k * C + c for k in range(9)]
+        cols += [4 + 9 * C + c, 4 + 10 * C + c, 4 + 11 * C + c]
+        cols += [4 + 12 * C + k * C + c for k in range(9)]
+        cols += [4 + 21 * C] * 3
+    return cols
+
+
+@functools.lru_cache(maxsize=16)
+def _table_index(C: int, device: str) -> torch.Tensor:
+    return torch.tensor(_table_columns(C), dtype=torch.int64, device=device)
+
+
+def kernel_table(packed: torch.Tensor) -> torch.Tensor:
+    """The packed enhancers [G, 4 + 21C] as the kernel reads them: [G,
+    4 + 24C], each channel's 24 values contiguous (three 16-byte loads for
+    conv1 and its BN, three for conv2)."""
+    cols = _table_index(enhancer_channels(packed), str(packed.device))
+    padded = torch.cat([packed, packed.new_zeros((packed.shape[0], 1))], dim=1)
+    return padded.index_select(1, cols).contiguous()
+
 
 BN_EPS = 1e-5
 ENHANCE_MODES = {"pred": 0, "residual": 1, "direct": 2}
@@ -72,23 +101,21 @@ def enhancer_grouped(x: torch.Tensor, ids: torch.Tensor | None, packed: torch.Te
     if packed.dtype != torch.float32 or packed.device != x.device:
         raise ValueError("the packed enhancers must be float32 on the slices' device")
     G, C = packed.shape[0], enhancer_channels(packed)
-    smem = 4 * packed.numel() + _WINDOW_BYTES
-    if smem > SMEM_BYTES:
-        raise ValueError(f"{G} groups of {C} channels need {smem} B of shared memory; "
-                         f"the kernel has {SMEM_BYTES}")
+    if G > MAX_GROUPS:
+        raise ValueError(f"{G} groups exceed the kernel's {MAX_GROUPS}")
     B, H, W = x.shape
     if max(H, W) >= 2**31 or B * -(-H // 32) * -(-W // 32) >= 2**31:
         raise ValueError(f"slices {tuple(x.shape)} exceed the kernel's grid")
     x = x.contiguous()
     ids = None if ids is None else ids.contiguous()
-    packed = packed.contiguous()
+    table = kernel_table(packed)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     with torch.cuda.device(x.device):
         _build.launch("enhancer_fused", "enhancer_fused", "enhancer_grouped", _ARGTYPES,
                       x.data_ptr(), None if ids is None else ids.data_ptr(), B, H, W,
-                      packed.data_ptr(), G, C, ENHANCE_MODES[mode],
+                      table.data_ptr(), G, C, ENHANCE_MODES[mode],
                       int(clamp_eb is not None),
                       0.0 if clamp_eb is None else float(clamp_eb), out.data_ptr(),
                       torch.cuda.current_stream().cuda_stream)

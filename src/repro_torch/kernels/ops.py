@@ -89,7 +89,8 @@ def huffman_decode_op(words, offsets, counts, lut_count, lut_bits, lut_ids,
                       cw_map, order, len_sorted, *, chunk_size: int,
                       k: int) -> torch.Tensor:
     """Multi-symbol-LUT Huffman decode -> alphabet ids [C, chunk_size] int32
-    (words need >= 2 zero tail words)."""
+    (words need >= 2 zero tail words; offsets are int32 or int64 bit
+    positions)."""
     args = (words, offsets, counts, lut_count, lut_bits, lut_ids, cw_map, order,
             len_sorted)
     if _on_cuda(words):

@@ -101,7 +101,8 @@ def huffman_decode_ref(words, offsets, counts, lut_count, lut_bits, lut_ids,
     ``repro.kernels.huffman_decode._decode_block`` in torch).
 
     words: [NW] int32 big-endian stream words with >= 2 zero tail words;
-    offsets/counts: [C] int32 bit offsets / symbol counts; tables from
+    offsets: [C] int32 or int64 bit offsets (walked in int64, so a stream
+    may run past 2**32 bits); counts: [C] int32 symbol counts; tables from
     ``HuffmanCodec._device_tables``.  Returns ids [C, chunk_size] int32,
     zero past each chunk's count."""
     dev = words.device

@@ -14,8 +14,9 @@ Blobs are byte-identical to the reference's for the ``z2``/``z4`` (zlib)
 and ``hc``/``hZ`` (chunked Huffman) tags.  The per-symbol work never leaves
 the symbols' device: what the kernels cannot take is refused with a
 ``ValueError`` on every device -- a table with a code longer than 32 bits
-(no encoder writes one), a chunk larger than the encode kernel's shared
-memory (:data:`MAX_CHUNK`) or a stream past int32 bit positions.  The
+(no encoder writes one) or a chunk larger than the encode kernel's shared
+memory (:data:`MAX_CHUNK`).  Bit positions are 64-bit on every device, so
+a stream may run past 2**32 bits.  The
 legacy ``hf``/``hz`` tags are not read yet.
 """
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import huffman_decode, ops
 from repro_torch.kernels.huffman_encode import MAX_CHUNK
 from repro_torch.sz.artifact import ENTROPY_MAGIC
 
@@ -356,6 +357,10 @@ class HuffmanCodec:
                    for name, a in host.items()}
             got["alphabet"] = torch.from_numpy(self.alphabet.astype(np.int32)).to(device)
             got["k"] = k
+            if got["lut_ids"].is_cuda:  # the kernel's packed LUT, from the host copies
+                huffman_decode.packed_lut(got["lut_count"], got["lut_bits"], got["lut_ids"],
+                                          host=(host["lut_count"], host["lut_bits"],
+                                                host["lut_ids"]))
             per_dev[key] = got
         return got
 
@@ -378,10 +383,10 @@ class HuffmanCodec:
             raise ValueError("chunk table inconsistent with stream length")
         if len(stream) < (total + 7) // 8:
             raise ValueError("truncated Huffman stream")
-        # the decode kernel holds bit positions in int32
-        if total >= 1 << 31 or chunk_size * _FMT_CODE_LEN >= 1 << 31:
-            raise ValueError(f"Huffman stream of {total} bits in chunks of {chunk_size} "
-                             "is past the decoder's int32 bit positions")
+        # bit positions are int64; a chunk's own bits must stay below 2**31
+        if chunk_size * _FMT_CODE_LEN >= 1 << 31:
+            raise ValueError(f"Huffman chunks of {chunk_size} symbols are past the "
+                             "decoder's int32 chunk lengths")
         args, kw = self._decode_inputs(stream, n_symbols, chunk_size, ends - chunk_bits,
                                        device)
         ids = ops.huffman_decode_op(*args, **kw)
@@ -403,7 +408,7 @@ class HuffmanCodec:
         padded[: raw.size] = raw
         words = padded.view(">u4").astype(np.uint32).view(np.int32)
         args = (torch.from_numpy(words).to(device),
-                torch.from_numpy(offsets.astype(np.int32)).to(device),
+                torch.from_numpy(offsets.astype(np.int64)).to(device),
                 torch.from_numpy(counts).to(device), tabs["lut_count"], tabs["lut_bits"],
                 tabs["lut_ids"], tabs["cw_map"], tabs["order"], tabs["len_sorted"])
         return args, {"chunk_size": chunk_size, "k": tabs["k"]}

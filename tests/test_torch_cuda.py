@@ -189,3 +189,155 @@ def test_szjx_on_the_card_matches_the_cpu(cuda, tmp_path):
         full = np.asarray(back)
         assert np.array_equal(full, recon.cpu().numpy())
         assert np.array_equal(back[3:20, :, 5], full[3:20, :, 5])
+
+
+def _decode_args(codec, sym, cs, device):
+    """Pack ``sym`` with ``codec`` (the plain encode, which takes any chunk
+    size) and return the decode op's arguments on ``device`` (int64 offsets)
+    and the chunk bit counts."""
+    stream, bits, _ = codec._device_pack(torch.from_numpy(sym), cs)
+    args, kw = codec._decode_inputs(stream, sym.size, cs, np.cumsum(bits) - bits, device)
+    return list(args), kw, bits
+
+
+def _skewed(rng, n_sizes=17, cap=4096):
+    sizes = [2 ** i for i in range(n_sizes - 2, 0, -1)] + [1, 1]
+    sym = np.repeat(np.arange(len(sizes), dtype=np.int32), np.minimum(sizes, cap))
+    rng.shuffle(sym)
+    return sym
+
+
+@pytest.mark.parametrize("case", ["cs1", "cs256", "max_chunk", "codes32_and_escapes_in_a_warp",
+                                  "short_last_chunk", "wide_alphabet", "int32_offsets",
+                                  "zeroed_stream", "truncated_stream"])
+def test_huffman_decode_edges_match_plain_version(cuda, case):
+    """The decode kernel bit for bit against its plain version on the edges
+    of its design: chunk sizes 1 .. MAX_CHUNK (staging overrun), 32-bit codes
+    and LUT escapes mixed among one warp's chunks, a short last chunk, an
+    alphabet past the shared-memory escape tables, int32 offsets, and a
+    damaged stream (which must end)."""
+    from repro_torch.kernels.huffman_encode import MAX_CHUNK
+
+    rng = np.random.default_rng(len(case))
+    sym, cs = _skewed(rng), 256
+    codec = entropy.HuffmanCodec.fit(torch.from_numpy(sym))
+    if case == "cs1":
+        sym, cs = sym[:3001], 1
+    elif case == "max_chunk":
+        sym, cs = np.concatenate([sym, sym[::-1], sym[:777]]), MAX_CHUNK
+    elif case == "codes32_and_escapes_in_a_warp":
+        fib = [1, 1] + [2 ** i for i in range(1, 45)]
+        L = entropy._limited_code_lengths(np.asarray(fib, np.int64))
+        assert int(L.max()) == 32
+        alphabet = np.arange(L.size, dtype=np.int32)
+        codec = entropy.HuffmanCodec(alphabet, L, entropy._canonical_codes(L))
+        # every few chunks a run of the longest codes, between LUT hits
+        sym = rng.choice(alphabet[:8], 64 * 40).astype(np.int32)
+        sym[::97] = alphabet[-1]
+        sym[5::61] = alphabet[-3]
+        cs = 40
+    elif case == "short_last_chunk":
+        sym = sym[: 256 * 37 + 3]
+    elif case == "wide_alphabet":
+        sym = rng.integers(0, 70000, 300001).astype(np.int32)
+        codec = entropy.HuffmanCodec.fit(torch.from_numpy(sym))
+        assert codec.alphabet.size > 4096
+    args, kw, _ = _decode_args(codec, sym, cs, cuda)
+    if case == "int32_offsets":
+        args[1] = args[1].to(torch.int32)
+    elif case == "zeroed_stream":
+        args[0] = torch.zeros_like(args[0])
+    elif case == "truncated_stream":
+        args[0] = args[0][: args[0].numel() // 3].clone()
+        args[0][-2:] = 0
+    ops.reset_launches()
+    got = ops.huffman_decode_op(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["huffman_decode"] == 1
+    assert torch.equal(got, ref.huffman_decode_ref(*args, **kw))
+    if case not in ("zeroed_stream", "truncated_stream"):
+        ids = got.reshape(-1)[: sym.size].cpu().numpy()
+        np.testing.assert_array_equal(codec.alphabet[ids], sym)
+
+
+def test_huffman_decode_offsets_past_2_31_and_2_32_bits(cuda):
+    """Chunks placed at bit offsets past 2**31 and 2**32 in a stream of
+    ~600 MB of words decode bit for bit as the plain version does (64-bit
+    positions throughout)."""
+    rng = np.random.default_rng(31)
+    sym = _skewed(rng)[: 256 * 8]
+    codec = entropy.HuffmanCodec.fit(torch.from_numpy(sym))
+    cs = 256
+    lens, cws = codec._pack_inputs(torch.from_numpy(sym).to(cuda), cs)
+    local, bits = ops.huffman_encode_op(lens, cws)
+    local = local.cpu().numpy().view(np.uint32).astype(np.uint64)
+    bits = bits.cpu().numpy().astype(np.int64)
+    n_words = 150_000_000  # 4.8e9 bits
+    # chunks at least 5,000 bits apart (one holds <= 256 x 17), two of them
+    # straddling 2**31 and 2**32
+    offsets = np.array([5, 2**31 - 300, 2**31 + 5003, 2**32 - 301, 2**32 + 5003,
+                        2**32 + 2**20 + 31, (n_words - 400) * 32 + 7, (n_words - 200) * 32],
+                       np.int64)
+    assert int(bits.max()) < 5000 and bits[1] > 300 and bits[3] > 301
+    words = torch.zeros(n_words, dtype=torch.int32, device=cuda)
+    for c, off in enumerate(offsets):  # each chunk's bits shifted to its offset
+        used = -(-int(bits[c]) // 32)
+        sh = int(off & 31)
+        win = np.zeros(used + 1, np.uint64)
+        win[:used] = local[c, :used] >> np.uint64(sh)
+        win[1:] |= (local[c, :used] << np.uint64(32 - sh)) & np.uint64(0xFFFFFFFF)
+        at = int(off >> 5)
+        piece = torch.from_numpy(win.astype(np.uint32).view(np.int32)).to(cuda)
+        words[at : at + used + 1] |= piece
+    tabs = codec._tables_on(cuda)
+    counts = torch.full((offsets.size,), cs, dtype=torch.int32, device=cuda)
+    args = [words, torch.from_numpy(offsets).to(cuda), counts, tabs["lut_count"],
+            tabs["lut_bits"], tabs["lut_ids"], tabs["cw_map"], tabs["order"],
+            tabs["len_sorted"]]
+    got = ops.huffman_decode_op(*args, chunk_size=cs, k=tabs["k"])
+    assert torch.equal(got, ref.huffman_decode_ref(*args, chunk_size=cs, k=tabs["k"]))
+    np.testing.assert_array_equal(codec.alphabet[got.cpu().numpy()], sym.reshape(8, cs))
+
+
+def _enhancer_case(rng, case, device):
+    """(x, ids, packed) of an enhancer edge case."""
+    C = {"channels_2": 2, "channels_12": 12}.get(case, 9)
+    G, shape = {"channels_2": (6, (2, 45, 70)), "channels_12": (6, (2, 45, 70)),
+                "nine_groups_a_neighbourhood": (9, (2, 40, 70)),
+                "twenty_groups_a_block": (20, (3, 32, 32)),
+                "groups_change_on_block_borders": (4, (2, 70, 90)),
+                "height_1": (3, (4, 1, 77)), "width_1": (3, (4, 77, 1)),
+                "off_block_sizes": (5, (3, 45, 33)),
+                "G287": (287, (2, 64, 96)), "G4096": (4096, (1, 96, 96))}[case]
+    packed = _random_enhancers(rng, G, C, device)
+    B, H, W = shape
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    if case == "nine_groups_a_neighbourhood":
+        ids = np.broadcast_to((yy % 3) * 3 + xx % 3, shape)
+    elif case == "groups_change_on_block_borders":  # at x = 32, 64 and y = 32, 64, and
+        ids = np.broadcast_to((xx // 32 + yy // 32 + (xx % 32 == 31)) % G, shape)  # in halos
+    else:
+        ids = rng.integers(0, G, shape)
+    ids = np.ascontiguousarray(ids, np.int32)
+    x = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(device)
+    return x, torch.from_numpy(ids).to(device), packed
+
+
+@pytest.mark.parametrize("mode", ["pred", "residual"])
+@pytest.mark.parametrize("case", ["nine_groups_a_neighbourhood", "twenty_groups_a_block",
+                                  "groups_change_on_block_borders", "height_1", "width_1",
+                                  "off_block_sizes", "G287", "G4096", "channels_2",
+                                  "channels_12"])
+def test_enhancer_grouped_edges_match_plain_version(cuda, case, mode):
+    """The enhancer kernel within 1e-5 (1 + max|plain|) of its plain version on
+    the edges of its design (C = 2 fills a pass with many groups, C = 12
+    takes two channel chunks), and bit for bit against its own launch on a
+    subset of the slices."""
+    rng = np.random.default_rng(len(case))
+    x, ids, packed = _enhancer_case(rng, case, cuda)
+    got = ops.enhancer_grouped_op(x, ids, packed, mode=mode)
+    want = ref.enhancer_grouped_ref(x, ids, packed, mode=mode)
+    assert float((got - want).abs().max()) <= 1e-5 * (1 + float(want.abs().max()))
+    assert torch.equal(ops.enhancer_grouped_op(x[1:], ids[1:], packed, mode=mode), got[1:])
+    if case == "twenty_groups_a_block":
+        assert torch.unique(ids[0]).numel() == 20

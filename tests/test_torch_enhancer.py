@@ -146,3 +146,26 @@ def test_enhance_volume_matches_reference_and_enhance_tiles(weights):
     out = PT.enhance_tiles(tiles, model)
     for i in range(2):
         assert torch.equal(out[i], PT.enhance(tiles[i], model, device="cpu"))
+
+
+@pytest.mark.parametrize("G,C", [(1, 9), (20, 9), (287, 9), (4096, 9), (4096, 1), (20, 64)])
+def test_kernel_table_layout(G, C):
+    """The kernel reads group g's channel c as 24 contiguous floats of a
+    transposed table (w1 taps, b1, BN scale and shift, w2 taps, 3 zeros);
+    any number of groups up to group_hist's 4,096 -- the table is not held
+    in shared memory, so the 287-group limit of the first version is gone."""
+    from repro_torch.kernels import enhancer_fused
+
+    assert enhancer_fused.MAX_GROUPS >= max(G, 287)
+    rng = np.random.default_rng(G + C)
+    packed = torch.from_numpy(rng.normal(0, 1, (G, 4 + 21 * C)).astype(np.float32))
+    tab = enhancer_fused.kernel_table(packed)
+    assert tab.shape == (G, 4 + 24 * C) and tab.is_contiguous()
+    torch.testing.assert_close(tab[:, :4], packed[:, :4], rtol=0, atol=0)
+    w1 = packed[:, 4 : 4 + 9 * C].reshape(G, 9, C)
+    bn = packed[:, 4 + 9 * C : 4 + 12 * C].reshape(G, 3, C)
+    w2 = packed[:, 4 + 12 * C :].reshape(G, 9, C)
+    for c in {0, C // 2, C - 1}:
+        row = tab[:, 4 + 24 * c : 4 + 24 * (c + 1)]
+        want = torch.cat([w1[:, :, c], bn[:, :, c], w2[:, :, c], torch.zeros(G, 3)], dim=1)
+        torch.testing.assert_close(row, want, rtol=0, atol=0)

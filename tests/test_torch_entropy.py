@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as rops
 from repro.sz import entropy as R
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.sz import entropy as P
 
 BACKENDS = ("zlib", "huffman", "huffman+zlib")
@@ -200,10 +200,16 @@ def test_huffman_decode_plain_matches_reference(case):
     codec, n, cs, chunk_bits, stream, _ = P.parse_chunked(blob)
     cb = np.asarray(chunk_bits, np.int64)
     args, kw = codec._decode_inputs(stream, n, cs, np.cumsum(cb) - cb, torch.device("cpu"))
-    got = ref.huffman_decode_ref(*args, **kw).numpy()
-    want = rops.huffman_decode_op(*(jnp.asarray(a.numpy()) for a in args), **kw,
+    # the decode takes int64 bit offsets (entropy's own) and int32 ones (the
+    # reference's); the plain version and the op give the reference's ids
+    # for both
+    args32 = (args[0], args[1].to(torch.int32), *args[2:])
+    want = rops.huffman_decode_op(*(jnp.asarray(a.numpy()) for a in args32), **kw,
                                   use_pallas=case == "pallas", interpret=True)
-    np.testing.assert_array_equal(got, np.asarray(want))
+    for a in (args, args32):
+        got = ref.huffman_decode_ref(*a, **kw).numpy()
+        np.testing.assert_array_equal(got, np.asarray(want))
+        np.testing.assert_array_equal(ops.huffman_decode_op(*a, **kw).numpy(), got)
     np.testing.assert_array_equal(codec.alphabet[got.reshape(-1)[:n]], codes)
 
 
@@ -259,3 +265,34 @@ def test_unsupported_streams_are_refused(case):
     np.testing.assert_array_equal(R.decode_codes(blob, sym.shape, use_pallas=False), sym)
     with pytest.raises(ValueError, match="corrupt Huffman table"):
         P.decode_codes(blob, sym.shape, device="cpu")
+
+
+def test_decode_inputs_hand_the_kernel_int64_offsets():
+    """Bit offsets travel as int64, so a stream may run past 2**31 bits;
+    only a chunk's own bits are held below 2**31."""
+    codes, cs = np.random.default_rng(6).integers(-40, 40, size=1001).astype(np.int32), 256
+    codec = P.HuffmanCodec.fit(_t(codes))
+    offsets = np.array([0, 2**31 + 5, 2**32 + 77, 5 * 2**32], np.int64)
+    args, kw = codec._decode_inputs(b"\x00" * 64, 4 * cs, cs, offsets, torch.device("cpu"))
+    assert args[1].dtype == torch.int64 and args[1].tolist() == offsets.tolist()
+    assert args[2].dtype == torch.int32
+    assert kw == {"chunk_size": cs, "k": codec._device_tables()["k"]}
+
+
+@pytest.mark.parametrize("span", [40, 1000, 100000])
+def test_packed_lut_is_the_host_multi_lut(span):
+    """The kernel's packed LUT, rebuilt from the split int32 tables the op
+    takes, is bit for bit the host's multi-symbol LUT (6 x 8-bit, 3 x 16-bit
+    and 1 x 32-bit id slots)."""
+    from repro_torch.kernels import huffman_decode
+
+    codes = np.random.default_rng(span).integers(-span, span, 50000).astype(np.int32)
+    codec = P.HuffmanCodec.fit(_t(codes))
+    t = codec._device_tables()
+    packed, B, base = huffman_decode.pack_lut(t["lut_count"], t["lut_bits"], t["lut_ids"])
+    np.testing.assert_array_equal(packed, codec._multi_tables().mlut)
+    assert B == codec._multi_tables().B and t["lut_ids"].shape[0] * B + base <= 64
+    bad = t["lut_ids"].copy()
+    bad[0, 0] = 1 << B
+    with pytest.raises(ValueError, match="packed layout"):
+        huffman_decode.pack_lut(t["lut_count"], t["lut_bits"], bad)
