@@ -59,7 +59,9 @@ Phases (any failure raises and the script exits non-zero):
               2**31 bits (integer noise on [0, 2**16) at 512^3, abs_eb 0.5,
               ``huffman`` backend): api.compress -> save -> open -> full
               decode on the card, within eb (1 + 1e-6) and equal to x; the
-              stream's bits are printed;
+              stream's bits are printed; and [0, 1) noise at 64^3, rel_eb
+              1e-5, whose error past eb (float32 rounding of 2eb q, as in the
+              reference) is printed, with the card's bytes equal to the CPU's;
 9. cli     -- ``python -m repro_torch.cli`` in subprocesses on
               synthetic:temperature:64, tiled (tile 16) and monolithic,
               Lorenzo: compress -> info -> region -> decompress -> verify;
@@ -73,9 +75,7 @@ Phases (any failure raises and the script exits non-zero):
               the operations this run's group ids need, see
               ``enhancer_flop``); group_hist and enhancer_fused on both
               gwlz runs' decodes; huffman_decode and enhancer_fused also at
-              the monolithic shapes (``mono``); the two kernels redesigned
-              since their first version also print that version's time
-              (``ms_pr13``, from PERF.md);
+              the monolithic shapes (``mono``);
 11. cpu    -- the 128^3 corner compressed on the card and on the CPU gives
               identical GWTC bytes;
 12. golden -- tests/golden/gwtc_v1.bin and szjx_lorenzo.bin decode on the
@@ -132,12 +132,6 @@ SZJX_KERNELS = ("lorenzo_quant", "huffman_encode", "huffman_decode")  # needed o
 LAUNCH_PATH = {**{k: "main" for k in KERNELS}, "lorenzo_quant": "szjx",
                **{k: "gwlz" for k in GWLZ_KERNELS}}
 ENHANCE_RTOL = 1e-5  # |kernel - plain| <= ENHANCE_RTOL * (1 + max|plain|)
-# the first versions' times of the two kernels redesigned since, at each
-# shape of their rows (PERF.md: this script's earlier runs on an NVIDIA H100
-# 80GB HBM3 at 700.00 W), printed as ``ms_pr13`` beside the new times
-FIRST_VERSION_MS = {"huffman_decode": {"ms": 0.0658, "mono": 4.821},
-                    "enhancer_fused": {"ms": 14.24, "g1": 14.04, "all_groups": 11.13,
-                                       "mono": 14.29}}
 
 
 def emit(obj) -> None:
@@ -388,11 +382,11 @@ def edge_parity(par: Parity) -> None:
         got = torch.from_numpy(codec.alphabet).to(dev)[ids.reshape(-1)[: sym.size]]
         check(torch.equal(got, flat), f"huffman round trip [{case}] lost symbols")
 
-    # the decode alone, on streams packed by the plain encode (any chunk
-    # size): chunk sizes 1 and MAX_CHUNK (a chunk overruns its warp's staged
-    # words), 32-bit codes and LUT escapes among one warp's chunks, an
-    # alphabet past the shared-memory escape tables, int32 offsets, and a
-    # zeroed or truncated stream, which must still end
+    # encode and decode at chunk sizes 1 and MAX_CHUNK (a chunk past 48 KB
+    # of the encode's shared memory in all; it overruns its decode warp's
+    # staged words), 32-bit codes and LUT escapes among one warp's chunks, an
+    # alphabet past the shared-memory escape tables; the decode alone with
+    # int32 offsets and on a zeroed or truncated stream, which must still end
     skew = np.repeat(np.arange(17, dtype=np.int32),
                      np.minimum([2 ** i for i in range(15, 0, -1)] + [1, 1], 4096))
     rng.shuffle(skew)
@@ -415,7 +409,13 @@ def edge_parity(par: Parity) -> None:
         "truncated_stream": (skew_codec, skew, 256, "truncate"),
     }.items():
         codec = codec or entropy.HuffmanCodec.fit(torch.from_numpy(sym))
-        stream, bits64, _ = codec._device_pack(torch.from_numpy(sym), cs)  # plain encode
+        stream, bits64, _ = codec._device_pack(torch.from_numpy(sym).to(dev), cs)
+        plain = codec._device_pack(torch.from_numpy(sym), cs)[:2]  # the plain encode
+        par.compare("huffman_encode", case,
+                    (torch.frombuffer(bytearray(stream), dtype=torch.uint8),
+                     torch.from_numpy(bits64)),
+                    (torch.frombuffer(bytearray(plain[0]), dtype=torch.uint8),
+                     torch.from_numpy(plain[1])))
         args, kw = codec._decode_inputs(stream, sym.size, cs, np.cumsum(bits64) - bits64, dev)
         args = list(args)
         if damage == "int32":
@@ -690,15 +690,17 @@ def bigstream_path(tmp: Path):
     integer noise, uniform on [0, 2**16), at 512^3 with abs_eb 0.5 (~17.7
     bits a value), through the façade with the ``huffman`` backend (no host
     zlib), decoded on the card.  Integers keep 2eb q exact in float32, so the
-    decode must give x back; on [0, 1) noise at the same bits a value the
-    float32 rounding of 2eb q alone reaches 0.6% of eb, and the error 1.0014
-    eb was measured (PERF.md)."""
+    decode must give x back.  Beside it, [0, 1) noise at 64^3 and rel_eb 1e-5
+    (the same bits a value), where the float32 product 2eb q of the Lorenzo
+    prequantizer rounds past eb, as the reference's does
+    (tests/test_torch_szjx.py, ROADMAP Queue 3): its error is printed, and
+    the card's bytes and reconstruction must equal the CPU's."""
     import numpy as np
     import torch
 
     from repro_torch import api
     from repro_torch.kernels import ops
-    from repro_torch.sz import entropy
+    from repro_torch.sz import SZCompressor, entropy
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randint(0, 2**16, SHAPE, generator=gen, device="cuda").to(torch.float32)
@@ -725,13 +727,23 @@ def bigstream_path(tmp: Path):
     check(torch.equal(out, x), "bigstream decode is not the integer field")
     check(launches["huffman_decode"] > 0 and launches["huffman_encode"] > 0,
           f"a bigstream kernel never launched: {launches}")
+    u = torch.rand((64,) * 3, generator=gen, device="cuda")
+    sz = SZCompressor("lorenzo", backend="huffman")
+    u_card, u_rec = sz.compress(u, rel_eb=1e-5)
+    u_cpu, u_rec_cpu = sz.compress(u.cpu(), rel_eb=1e-5, device="cpu")
+    check(u_card.to_bytes() == u_cpu.to_bytes() and torch.equal(u_rec.cpu(), u_rec_cpu),
+          "[0, 1) noise: the card's SZJX differs from the CPU's")
+    u_err = float((u.double() - u_rec.double()).abs().max())
     emit({"phase": "bigstream", "field": "integers uniform on [0, 2**16), torch seed 0",
           "shape": list(SHAPE), "abs_eb": BIG_EB, "backend": "huffman",
           "eb_abs": art.eb_abs, "stream_bits": int(total),
           "bits_per_value": total / n_sym, "chunks": int(np.asarray(chunk_bits).size),
           "alphabet": int(codec.alphabet.size), "longest_code": int(codec.lengths.max()),
           "compress_s": t1 - t0, "decompress_s": t2 - t1, "max_abs_err": err,
-          "container_bytes": path.stat().st_size, "launches": launches})
+          "container_bytes": path.stat().st_size, "launches": launches,
+          "float_noise": {"field": "uniform on [0, 1), 64^3", "rel_eb": 1e-5,
+                          "eb_abs": u_card.eb_abs, "max_abs_err": u_err,
+                          "err_over_eb": u_err / u_card.eb_abs, "cpu_identical": True}})
     return launches
 
 
@@ -1085,31 +1097,34 @@ def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
     dcodec, n_sym, dcs, chunk_bits, stream, _ = entropy.parse_chunked(art.tile_blobs[lane])
     cb = np.asarray(chunk_bits, np.int64)
     args, kw = dcodec._decode_inputs(stream, n_sym, dcs, np.cumsum(cb) - cb, dev)
-    ids = huffman_decode.huffman_decode_probe(*args, **kw)
+    kw_lut = {**kw, "lut": dcodec._tables_on(dev)["lut"]}  # as the decode path passes it
+    ids = huffman_decode.huffman_decode_probe(*args, **kw_lut)
     par.compare("huffman_decode", "main_lane", ids, ref.huffman_decode_ref(*args, **kw))
     # bytes: the stream's words, the chunk offsets and counts read, the ids
     # written (the codec's tables are left out: they derive from its header)
     n_words = -(-int(cb.sum()) // 32)
     nbytes = 4 * (n_words + args[1].numel() + args[2].numel() + ids.numel())
-    row("huffman_decode", lambda: huffman_decode.huffman_decode_probe(*args, **kw),
+    row("huffman_decode", lambda: huffman_decode.huffman_decode_probe(*args, **kw_lut),
         lambda: ref.huffman_decode_ref(*args, **kw), nbytes, 16 * n_sym, plain_reps=5)
     rows["huffman_decode"]["shape_note"] = (f"{args[0].numel()} stream words, "
                                             f"ids [{ids.shape[0]}, {ids.shape[1]}]")
-    del args, ids
+    del args, kw_lut, ids
 
     dcodec, n_sym, dcs, chunk_bits, stream, _ = entropy.parse_chunked(sz_art.code_blob)
     cb = np.asarray(chunk_bits, np.int64)
     args, kw = dcodec._decode_inputs(stream, n_sym, dcs, np.cumsum(cb) - cb, dev)
-    ids = huffman_decode.huffman_decode_probe(*args, **kw)
+    kw_lut = {**kw, "lut": dcodec._tables_on(dev)["lut"]}
+    ids = huffman_decode.huffman_decode_probe(*args, **kw_lut)
     par.compare("huffman_decode", "szjx_stream", ids, ref.huffman_decode_ref(*args, **kw))
     n_words = -(-int(cb.sum()) // 32)
     nbytes = 4 * (n_words + args[1].numel() + args[2].numel() + ids.numel())
-    time_row(mrows, "huffman_decode", lambda: huffman_decode.huffman_decode_probe(*args, **kw),
+    time_row(mrows, "huffman_decode",
+             lambda: huffman_decode.huffman_decode_probe(*args, **kw_lut),
              lambda: ref.huffman_decode_ref(*args, **kw), nbytes, 16 * n_sym, reps=20,
              plain_reps=1)
     mrows["huffman_decode"]["shape_note"] = (f"{args[0].numel()} stream words, ids "
                                              f"[{ids.shape[0]}, {ids.shape[1]}], one stream")
-    del args, ids
+    del args, kw_lut, ids
 
     gw_art, model, gw_launches = gw["gwlz"]
     rows.update(gwlz_kernel_rows(par, tile_slices(gw_art), model, "gwlz", "residual",
@@ -1147,8 +1162,6 @@ def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
                     "launches_by_path": {p: ls[name] for p, ls in path_launches.items()},
                     **({"tolerance": par.tol[name]} if par.tol[name] else {}),
                     **{k: r[k] for k in ("flop", "g1", "all_groups", "mono") if k in r}})
-        for shape, ms in FIRST_VERSION_MS.get(name, {}).items():
-            (out[-1] if shape == "ms" else out[-1][shape])["ms_pr13"] = ms
     return out
 
 

@@ -88,8 +88,15 @@ huffman_encode_pack_kernel(const int32_t* __restrict__ lens, const int32_t* __re
 extern "C" int huffman_encode_pack(const void* lens, const void* codes, long long n_chunks,
                                    int cs, void* words, void* chunk_bits, void* stream) {
   if (n_chunks <= 0 || cs <= 0) return static_cast<int>(cudaGetLastError());
-  huffman_encode_pack_kernel<<<static_cast<unsigned>(n_chunks), THREADS,
-                               static_cast<size_t>(cs) * sizeof(uint32_t),
+  const size_t smem = static_cast<size_t>(cs) * sizeof(uint32_t);
+  // a block past 48 KB of shared memory in all (warp_tot is static) must opt in
+  if (smem + WARPS * sizeof(uint32_t) > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        huffman_encode_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  huffman_encode_pack_kernel<<<static_cast<unsigned>(n_chunks), THREADS, smem,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(lens), static_cast<const int32_t*>(codes), cs,
       static_cast<int32_t*>(words), static_cast<int32_t*>(chunk_bits));

@@ -17,7 +17,8 @@ from repro_torch.kernels import _build
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p)
 MAX_GROUPS = 4096  # as the group_hist kernel that assigns the groups
 
 
@@ -112,11 +113,13 @@ def enhancer_grouped(x: torch.Tensor, ids: torch.Tensor | None, packed: torch.Te
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    # the count and list of blocks of many groups, which a second kernel runs
+    many = torch.empty(1 + B * -(-H // 32) * -(-W // 32), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         _build.launch("enhancer_fused", "enhancer_fused", "enhancer_grouped", _ARGTYPES,
                       x.data_ptr(), None if ids is None else ids.data_ptr(), B, H, W,
                       table.data_ptr(), G, C, ENHANCE_MODES[mode],
                       int(clamp_eb is not None),
-                      0.0 if clamp_eb is None else float(clamp_eb), out.data_ptr(),
-                      torch.cuda.current_stream().cuda_stream)
+                      0.0 if clamp_eb is None else float(clamp_eb), many.data_ptr(),
+                      out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     return out

@@ -4,14 +4,14 @@ huffman_decode_probe``).  Plain version: ``ref.huffman_decode_ref``.
 
 The op takes the TPU kernel's split int32 tables (``lut_count``,
 ``lut_bits``, ``lut_ids`` [S, 2**k]).  The kernel reads the LUT as one
-64-bit entry per window, the host's ``_multi_lut`` layout: count in bits
-0-7, consumed bits in 8-15, then the S ids in B-bit slots from bit 16 (or
-one 32-bit id from bit 32).  :func:`packed_lut` builds that table once per
-set of table tensors and keeps it while they live unchanged."""
+64-bit entry per window, the layout of the host codec's ``_multi_lut``:
+count in bits 0-7, consumed bits in 8-15, then the S ids in B-bit slots from
+bit 16 (or one 32-bit id from bit 32).  The codec hands its own packed LUT
+to the launcher; :func:`pack_lut` builds it from split tables for callers
+that have only those."""
 from __future__ import annotations
 
 import ctypes
-import weakref
 
 import numpy as np
 import torch
@@ -23,9 +23,6 @@ _I = ctypes.c_int
 _ARGTYPES = (_P, ctypes.c_longlong, _P, _I, _P, ctypes.c_longlong, _P, _I, _I, _I,
              _P, _P, _P, _I, _I, _P, _P)
 MAX_IDS = 8  # ids one probe may yield (the kernel's MAX_S)
-
-# id(lut_ids) -> (weakref to it, versions of the three tables, (packed, B, id_base))
-_PACKED: dict[int, tuple] = {}
 
 
 def lut_layout(S: int) -> tuple[int, int]:
@@ -56,34 +53,15 @@ def pack_lut(lut_count: np.ndarray, lut_bits: np.ndarray, lut_ids: np.ndarray):
     return packed, B, id_base
 
 
-def packed_lut(lut_count: torch.Tensor, lut_bits: torch.Tensor, lut_ids: torch.Tensor,
-               host=None):
-    """The packed LUT of these tables on their device, as (int64 tensor
-    [2**k] holding the uint64 bits, B, id_base); built once and kept while
-    the three tensors live unchanged.  ``host``: their numpy copies, when the
-    caller has them (saves the copy back)."""
-    versions = (id(lut_count), lut_count._version, id(lut_bits), lut_bits._version,
-                lut_ids._version)
-    hit = _PACKED.get(id(lut_ids))
-    if hit is not None and hit[0]() is lut_ids and hit[1] == versions:
-        return hit[2]
-    arrays = host if host is not None else [t.cpu().numpy()
-                                            for t in (lut_count, lut_bits, lut_ids)]
-    packed, B, id_base = pack_lut(*arrays)
-    value = (torch.from_numpy(packed.view(np.int64)).to(lut_ids.device), B, id_base)
-    key = id(lut_ids)
-    _PACKED[key] = (weakref.ref(lut_ids), versions, value)
-    weakref.finalize(lut_ids, _PACKED.pop, key, None)
-    return value
-
-
 def huffman_decode_probe(words, offsets, counts, lut_count, lut_bits, lut_ids,
-                         cw_map, order, len_sorted, *, chunk_size: int,
-                         k: int) -> torch.Tensor:
+                         cw_map, order, len_sorted, *, chunk_size: int, k: int,
+                         lut: torch.Tensor | None = None) -> torch.Tensor:
     """words: [NW] int32 big-endian stream words; offsets: [C] int32 or int64
     bit offsets; counts: [C] int32; tables from ``HuffmanCodec._device_tables``
-    (lut_ids is [S, 2**k]), all CUDA tensors on one device.  Returns ids
-    [C, chunk_size] int32."""
+    (lut_ids is [S, 2**k]), all CUDA tensors on one device; ``lut``: the same
+    LUT packed (int64 [2**k] on that device, as ``pack_lut`` packs it), or
+    None to pack it here from the split tables.  Returns ids [C, chunk_size]
+    int32."""
     named = dict(words=words, offsets=offsets, counts=counts, lut_count=lut_count,
                  lut_bits=lut_bits, lut_ids=lut_ids, cw_map=cw_map, order=order,
                  len_sorted=len_sorted)
@@ -103,7 +81,13 @@ def huffman_decode_probe(words, offsets, counts, lut_count, lut_bits, lut_ids,
         raise ValueError("offsets/counts must be [C] and chunk_size positive")
     if C * chunk_size >= 2**62:
         raise ValueError(f"{C} chunks of {chunk_size} ids exceed the kernel's indexing")
-    lut, B, id_base = packed_lut(lut_count, lut_bits, lut_ids)
+    B, id_base = lut_layout(lut_ids.shape[0])
+    if lut is None:
+        packed, _, _ = pack_lut(*(t.cpu().numpy() for t in (lut_count, lut_bits, lut_ids)))
+        lut = torch.from_numpy(packed.view(np.int64)).to(words.device)
+    elif lut.dtype != torch.int64 or lut.shape != (1 << k,) or lut.device != words.device:
+        raise ValueError(f"the packed LUT must be int64 [{1 << k}] on {words.device}")
+    lut = lut.contiguous()
     words, offsets, counts = words.contiguous(), offsets.contiguous(), counts.contiguous()
     cw_map, order, len_sorted = cw_map.contiguous(), order.contiguous(), len_sorted.contiguous()
     out = torch.empty((C, chunk_size), dtype=torch.int32, device=words.device)

@@ -9,7 +9,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-# one chunk's words live in shared memory: 48 KB without opting in to more
+# one chunk's words live in shared memory: at most 48 KB of them (the launch
+# opts in to more than 48 KB in all)
 MAX_CHUNK = 48 * 1024 // 4
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,

@@ -86,15 +86,17 @@ def huffman_encode_op(lens: torch.Tensor, codes: torch.Tensor):
 
 
 def huffman_decode_op(words, offsets, counts, lut_count, lut_bits, lut_ids,
-                      cw_map, order, len_sorted, *, chunk_size: int,
-                      k: int) -> torch.Tensor:
+                      cw_map, order, len_sorted, *, chunk_size: int, k: int,
+                      lut: torch.Tensor | None = None) -> torch.Tensor:
     """Multi-symbol-LUT Huffman decode -> alphabet ids [C, chunk_size] int32
     (words need >= 2 zero tail words; offsets are int32 or int64 bit
-    positions)."""
+    positions).  ``lut``: the three LUT tables already packed as the kernel
+    reads them (see ``huffman_decode_probe``); the plain version reads the
+    split tables."""
     args = (words, offsets, counts, lut_count, lut_bits, lut_ids, cw_map, order,
             len_sorted)
     if _on_cuda(words):
-        return huffman_decode_probe(*args, chunk_size=chunk_size, k=k)
+        return huffman_decode_probe(*args, chunk_size=chunk_size, k=k, lut=lut)
     return ref.huffman_decode_ref(*args, chunk_size=chunk_size, k=k)
 
 

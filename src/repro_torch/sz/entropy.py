@@ -16,8 +16,8 @@ the symbols' device: what the kernels cannot take is refused with a
 ``ValueError`` on every device -- a table with a code longer than 32 bits
 (no encoder writes one) or a chunk larger than the encode kernel's shared
 memory (:data:`MAX_CHUNK`).  Bit positions are 64-bit on every device, so
-a stream may run past 2**32 bits.  The
-legacy ``hf``/``hz`` tags are not read yet.
+a stream may run past 2**32 bits.  The legacy ``hf``/``hz`` tags are not
+read yet.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import huffman_decode, ops
+from repro_torch.kernels import ops
 from repro_torch.kernels.huffman_encode import MAX_CHUNK
 from repro_torch.sz.artifact import ENTROPY_MAGIC
 
@@ -345,22 +345,21 @@ class HuffmanCodec:
         return dev
 
     def _tables_on(self, device: torch.device) -> dict:
-        """``_device_tables`` plus the alphabet as tensors on ``device``
-        (cached per device; building twice under a race is harmless)."""
+        """``_device_tables`` plus the alphabet and the packed multi-symbol
+        LUT (``lut``: ``_multi_lut``'s uint64 bits as int64, which the CUDA
+        decode reads) as tensors on ``device`` (cached per device; building
+        twice under a race is harmless)."""
         per_dev = self.__dict__.setdefault("_dev_tensors", {})
         key = str(device)
         got = per_dev.get(key)
         if got is None:
             host = dict(self._device_tables())
             k = host.pop("k")
+            host["alphabet"] = self.alphabet.astype(np.int32)
+            host["lut"] = self._multi_tables().mlut.view(np.int64)
             got = {name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
                    for name, a in host.items()}
-            got["alphabet"] = torch.from_numpy(self.alphabet.astype(np.int32)).to(device)
             got["k"] = k
-            if got["lut_ids"].is_cuda:  # the kernel's packed LUT, from the host copies
-                huffman_decode.packed_lut(got["lut_count"], got["lut_bits"], got["lut_ids"],
-                                          host=(host["lut_count"], host["lut_bits"],
-                                                host["lut_ids"]))
             per_dev[key] = got
         return got
 
@@ -389,7 +388,7 @@ class HuffmanCodec:
                              "decoder's int32 chunk lengths")
         args, kw = self._decode_inputs(stream, n_symbols, chunk_size, ends - chunk_bits,
                                        device)
-        ids = ops.huffman_decode_op(*args, **kw)
+        ids = ops.huffman_decode_op(*args, **kw, lut=self._tables_on(device)["lut"])
         # only the last chunk can be short, so row-major flatten + truncate
         # is exactly the symbol stream
         return self._tables_on(device)["alphabet"][ids.reshape(-1)[:n_symbols]]

@@ -192,10 +192,10 @@ def test_szjx_on_the_card_matches_the_cpu(cuda, tmp_path):
 
 
 def _decode_args(codec, sym, cs, device):
-    """Pack ``sym`` with ``codec`` (the plain encode, which takes any chunk
-    size) and return the decode op's arguments on ``device`` (int64 offsets)
-    and the chunk bit counts."""
-    stream, bits, _ = codec._device_pack(torch.from_numpy(sym), cs)
+    """Pack ``sym`` with ``codec`` on ``device`` (the encode kernel, chunk
+    sizes up to MAX_CHUNK) and return the decode op's arguments there (int64
+    offsets) and the chunk bit counts."""
+    stream, bits, _ = codec._device_pack(torch.from_numpy(sym).to(device), cs)
     args, kw = codec._decode_inputs(stream, sym.size, cs, np.cumsum(bits) - bits, device)
     return list(args), kw, bits
 
@@ -251,13 +251,35 @@ def test_huffman_decode_edges_match_plain_version(cuda, case):
         args[0] = args[0][: args[0].numel() // 3].clone()
         args[0][-2:] = 0
     ops.reset_launches()
-    got = ops.huffman_decode_op(*args, **kw)
+    got = ops.huffman_decode_op(*args, **kw, lut=codec._tables_on(cuda)["lut"])
     torch.cuda.synchronize()
     assert ops.LAUNCHES["huffman_decode"] == 1
     assert torch.equal(got, ref.huffman_decode_ref(*args, **kw))
     if case not in ("zeroed_stream", "truncated_stream"):
         ids = got.reshape(-1)[: sym.size].cpu().numpy()
         np.testing.assert_array_equal(codec.alphabet[ids], sym)
+
+
+def test_huffman_encode_at_max_chunk_round_trips(cuda):
+    """The encode kernel at MAX_CHUNK (48 KB of words in shared memory, past
+    48 KB in all) packs bit for bit as its plain version, and the stream
+    decodes on the card."""
+    from repro_torch.kernels.huffman_encode import MAX_CHUNK
+
+    sym = _skewed(np.random.default_rng(48))
+    sym = np.concatenate([sym, sym[::-1], sym[:999]])
+    flat = torch.from_numpy(sym).to(cuda)
+    codec = entropy.HuffmanCodec.fit(flat)
+    lens, cws = codec._pack_inputs(flat, MAX_CHUNK)
+    ops.reset_launches()
+    words, bits = ops.huffman_encode_op(lens, cws)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["huffman_encode"] == 1
+    want_words, want_bits = ref.huffman_encode_ref(lens, cws)
+    assert torch.equal(words, want_words) and torch.equal(bits, want_bits)
+    blob = entropy.encode_codes(flat, "huffman", chunk_size=MAX_CHUNK)
+    assert blob == entropy.encode_codes(flat.cpu(), "huffman", chunk_size=MAX_CHUNK)
+    assert torch.equal(entropy.decode_codes(blob, sym.shape, device=cuda).cpu(), flat.cpu())
 
 
 def test_huffman_decode_offsets_past_2_31_and_2_32_bits(cuda):

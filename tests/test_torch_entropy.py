@@ -283,7 +283,8 @@ def test_decode_inputs_hand_the_kernel_int64_offsets():
 def test_packed_lut_is_the_host_multi_lut(span):
     """The kernel's packed LUT, rebuilt from the split int32 tables the op
     takes, is bit for bit the host's multi-symbol LUT (6 x 8-bit, 3 x 16-bit
-    and 1 x 32-bit id slots)."""
+    and 1 x 32-bit id slots), which the codec hands to the decode as
+    ``lut``."""
     from repro_torch.kernels import huffman_decode
 
     codes = np.random.default_rng(span).integers(-span, span, 50000).astype(np.int32)
@@ -291,6 +292,9 @@ def test_packed_lut_is_the_host_multi_lut(span):
     t = codec._device_tables()
     packed, B, base = huffman_decode.pack_lut(t["lut_count"], t["lut_bits"], t["lut_ids"])
     np.testing.assert_array_equal(packed, codec._multi_tables().mlut)
+    lut = codec._tables_on(torch.device("cpu"))["lut"]
+    assert lut.dtype == torch.int64
+    np.testing.assert_array_equal(lut.numpy().view(np.uint64), packed)
     assert B == codec._multi_tables().B and t["lut_ids"].shape[0] * B + base <= 64
     bad = t["lut_ids"].copy()
     bad[0, 0] = 1 << B

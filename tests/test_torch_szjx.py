@@ -141,6 +141,27 @@ def test_szjx_bytes_match_reference(backend, shape):
     assert np.abs(recon.numpy() - x).max() <= art.eb_abs * (1 + 1e-6)
 
 
+def test_float32_rounding_past_eb_is_the_references():
+    """At ~17 bits a value ([0, 1) noise at rel_eb 1e-5) the float32 product
+    2eb q of the Lorenzo prequantizer rounds past eb (1 + 1e-6).  The port
+    does what the reference does: the same bytes, the same reconstruction
+    bits, the same error past eb, on compress and on decode (a known limit
+    of both packages, ROADMAP Queue 3)."""
+    x = np.random.default_rng(17).random((24, 24, 24), dtype=np.float32)
+    art, recon = PS.SZCompressor("lorenzo", backend="huffman").compress(x, rel_eb=1e-5,
+                                                                        device=CPU)
+    rart, rrecon = RS.SZCompressor("lorenzo", backend="huffman").compress(
+        jnp.asarray(x), rel_eb=1e-5)
+    assert art.to_bytes() == rart.to_bytes()
+    back = PS.decompress(PS.SZCompressed.from_bytes(art.to_bytes()), device=CPU).numpy()
+    for got in (recon.numpy(), back):
+        np.testing.assert_array_equal(_bits(got), _bits(rrecon))
+    err = np.abs(back.astype(np.float64) - x).max()
+    assert err == np.abs(np.asarray(rrecon, np.float64) - x).max()
+    assert err > art.eb_abs * (1 + 1e-6)
+    assert 1 / (2 * art.eb_abs) > 2**15  # levels of q: ~17 bits a value at 512^3
+
+
 def test_each_package_opens_the_others_szjx():
     x = _field((12, 20, 9), seed=5)
     pblob = PS.compress(x, abs_eb=0.5, predictor="lorenzo", device=CPU)[0].to_bytes()
