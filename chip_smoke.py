@@ -13,7 +13,12 @@ Phases (any failure raises and the script exits non-zero):
               .5 ties, negatives, |q| near 2**25, ragged tiles and ranks
               0-2, z across the volume kernel's 32-plane segments, spans
               above 4096, short last chunks, codes longer than the 12-bit
-              LUT up to the 32-bit maximum codeword, values on / below /
+              LUT up to the 32-bit maximum codeword; the lane histogram at
+              L = 1 and 512, lanes piled on one bin, spans at the
+              shared-memory limit, just past it and above 2**16, rows off a
+              16-byte boundary; the encode at chunk sizes 1, 31, 255, 256,
+              257, 1024 and MAX_CHUNK (both of its forms) with pad slots and
+              32-bit codes, and on rows off a 16-byte boundary; values on / below /
               above the group edges, duplicate edges, G = 1, 20 and the
               largest G; the decode alone at chunk sizes 1 and MAX_CHUNK,
               32-bit codes and escapes among one warp's chunks, an alphabet
@@ -30,14 +35,16 @@ Phases (any failure raises and the script exits non-zero):
               through compress_tiled -> to_bytes -> from_bytes ->
               decompress_tiled and decompress_region; launch counters are
               zeroed just before and read just after (as in every phase
-              below);
+              below), and read after the compress too: it must launch
+              symbol_hist and huffman_encode once each, for all 512 lanes;
 4. gwlz    -- the GWLZ enhancer path on the same field at the paper's model
               width (G = 20, C = 9, batch 10; 1 epoch, cut from 300):
               GWLZ.compress_tiled -> to_bytes -> from_bytes -> enhanced
               decompress_tiled and decompress_region.  Checks: the decode's
               PSNR equals the compress-time psnr_gwlz, region == full crop
               bit for bit, psnr_gwlz >= psnr_sz - 1e-3, group_hist and
-              enhancer_fused launched.  On this field at rel_eb 1e-3 the
+              enhancer_fused launched, symbol_hist and huffman_encode once
+              each in the compress.  On this field at rel_eb 1e-3 the
               quantile edges collapse and only 2 of the 20 groups hold values;
 5. gwlz_all_groups -- the same path and checks on
               nyx_like_field((512,)*3, "velocity_x", seed=0), where all 20
@@ -73,9 +80,11 @@ Phases (any failure raises and the script exits non-zero):
               where one exists, and the bound (the larger of bytes over
               3.35 TB/s and operations over 67 TFLOP/s; for the enhancer
               the operations this run's group ids need, see
-              ``enhancer_flop``); group_hist and enhancer_fused on both
-              gwlz runs' decodes; huffman_decode and enhancer_fused also at
-              the monolithic shapes (``mono``);
+              ``enhancer_flop``); symbol_hist and huffman_encode in the
+              tiled compress's one launch over all 512 lanes; group_hist and
+              enhancer_fused on both gwlz runs' decodes; symbol_hist,
+              huffman_encode, huffman_decode and enhancer_fused also at the
+              monolithic shapes (``mono``);
 11. cpu    -- the 128^3 corner compressed on the card and on the CPU gives
               identical GWTC bytes;
 12. golden -- tests/golden/gwtc_v1.bin and szjx_lorenzo.bin decode on the
@@ -114,10 +123,10 @@ KERNELS = {  # counter name -> (source, TPU kernel it replaces, __global__ name 
     "lorenzo_quant": ("src/repro_torch/csrc/lorenzo_quant.cu",
                       "src/repro/kernels/lorenzo_quant.py:55", "lorenzo_quant_volume_kernel"),
     "symbol_hist": ("src/repro_torch/csrc/symbol_hist.cu",
-                    "src/repro/kernels/group_hist.py:53", "symbol_hist_"),
+                    "src/repro/kernels/group_hist.py:53", "symbol_hist_lanes_kernel"),
     "huffman_encode": ("src/repro_torch/csrc/huffman_encode.cu",
                        "src/repro/kernels/huffman_encode.py:72",
-                       "huffman_encode_pack_kernel"),
+                       "huffman_encode_"),  # the warp and the block form
     "huffman_decode": ("src/repro_torch/csrc/huffman_decode.cu",
                        "src/repro/kernels/huffman_decode.py:106",
                        "huffman_decode_probe_kernel"),
@@ -127,6 +136,7 @@ KERNELS = {  # counter name -> (source, TPU kernel it replaces, __global__ name 
                        "src/repro/kernels/enhancer_fused.py:68", "enhancer_grouped_kernel"),
 }
 GWLZ_KERNELS = ("group_hist", "enhancer_fused")  # counted on the gwlz path
+LANE_KERNELS = ("symbol_hist", "huffman_encode")  # once per tiled compress, all lanes
 SZJX_KERNELS = ("lorenzo_quant", "huffman_encode", "huffman_decode")  # needed on szjx
 # the path whose launches each kernel's row reports
 LAUNCH_PATH = {**{k: "main" for k in KERNELS}, "lorenzo_quant": "szjx",
@@ -348,6 +358,27 @@ def edge_parity(par: Parity) -> None:
         par.compare("symbol_hist", case, group_hist.symbol_hist(s, bins),
                     ref.symbol_hist_ref(s, bins))
 
+    # the lane histogram: one row spread over the card and 512 rows of a
+    # block each, lanes piled on one bin, spans at the shared-memory limit,
+    # just past it and above 2**16, rows off a 16-byte boundary
+    for case, (L, n, span) in {
+        "lanes_L1": (1, 1_000_003, 994), "lanes_L512": (512, 4096, 62),
+        "lanes_skewed": (64, 65536, 300),
+        f"lanes_span_{group_hist.SMEM_BINS}": (8, 100_000, group_hist.SMEM_BINS),
+        f"lanes_span_{group_hist.SMEM_BINS + 1}": (8, 100_000, group_hist.SMEM_BINS + 1),
+        "lanes_span_70000": (4, 300_001, 70_000),
+        "lanes_rows_off_16B": (33, 4099, 500),
+    }.items():
+        lo = rng.integers(-1000, 1000, L).astype(np.int32)
+        c = lo[:, None] + rng.integers(-3, span + 3, (L, n)).astype(np.int32)
+        if case == "lanes_skewed":  # 97% of every lane on one bin
+            c = np.where(rng.random((L, n)) < 0.97, lo[:, None] + 5,
+                         lo[:, None] + rng.integers(0, 2, (L, n))).astype(np.int32)
+        ct, lt = torch.from_numpy(c).to(dev), torch.from_numpy(lo).to(dev)
+        par.compare("symbol_hist", case, group_hist.symbol_hist_lanes(ct, lt, span),
+                    ref.symbol_hist_lanes_ref(ct, lt, span))
+        del ct, c
+
     # Huffman: codes longer than the 12-bit LUT (escape path) and a skew that
     # hits the 32-bit length cap; short last chunks; chunk sizes 8..1000
     sizes_esc = [2 ** i for i in range(16, 0, -1)] + [1, 1]
@@ -394,6 +425,19 @@ def edge_parity(par: Parity) -> None:
     L32 = entropy._limited_code_lengths(np.asarray(fib, np.int64))
     codec32 = entropy.HuffmanCodec(np.arange(L32.size, dtype=np.int32), L32,
                                    entropy._canonical_codes(L32))
+    # the encode in both of its forms (a warp a chunk up to WARP_MAX_CS, a
+    # block a chunk above), pad slots in the last chunk, 32-bit codes among
+    # short ones, and rows off a 16-byte boundary (scalar loads)
+    for cs in (1, 31, 255, 256, 257, huffman_encode.WARP_MAX_CS, huffman_encode.MAX_CHUNK):
+        sym32 = rng.choice(np.arange(6, dtype=np.int32), 3 * cs * 9 + 5)
+        sym32[::37] = L32.size - 1
+        lens, cws = codec32._pack_inputs(torch.from_numpy(sym32).to(dev), cs)
+        par.compare("huffman_encode", f"cs{cs}_pad_codes32",
+                    huffman_encode.huffman_encode_pack(lens, cws), ref.huffman_encode_ref(lens, cws))
+        C = lens.shape[0]
+        lens, cws = (t.reshape(-1)[1 : 1 + (C - 1) * cs].view(C - 1, cs) for t in (lens, cws))
+        par.compare("huffman_encode", f"cs{cs}_rows_off_16B",
+                    huffman_encode.huffman_encode_pack(lens, cws), ref.huffman_encode_ref(lens, cws))
     mixed = rng.choice(np.arange(8, dtype=np.int32), 64 * 40)
     mixed[::97], mixed[5::61] = L32.size - 1, L32.size - 3
     wide = rng.integers(0, 70000, 300001).astype(np.int32)
@@ -538,6 +582,7 @@ def main_path(x_np):
     blob = art.to_bytes()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    compress_launches = dict(ops.LAUNCHES)
     back = TiledCompressed.from_bytes(blob)
     out = decompress_tiled(back)
     torch.cuda.synchronize()
@@ -557,12 +602,14 @@ def main_path(x_np):
     check(torch.equal(region, crop), "region decode differs from the full decode's crop")
     check(all(launches[k] > 0 for k in KERNELS if LAUNCH_PATH[k] == "main"),
           f"a kernel never launched: {launches}")
+    check(all(compress_launches[k] == 1 for k in LANE_KERNELS),
+          f"the tiled compress did not launch each lane kernel once: {compress_launches}")
     emit({"phase": "main", "shape": list(SHAPE), "tile": list(TILE), "rel_eb": REL_EB,
           "backend": BACKEND, "eb_abs": art.eb_abs, "compress_s": t1 - t0,
           "decompress_s": t2 - t1, "region_ms": (t3 - t2) * 1e3, "roi": [list(r) for r in ROI],
           "region_tiles": int(np.prod([-(-b // t) - a // t for (a, b), t in zip(ROI, TILE)])),
           "ratio": x_np.nbytes / len(blob), "container_bytes": len(blob),
-          "max_abs_err": err, "launches": launches})
+          "max_abs_err": err, "compress_launches": compress_launches, "launches": launches})
     return art, blob, launches
 
 
@@ -586,6 +633,7 @@ def gwlz_path(x_np, phase: str):
     blob = art.to_bytes()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    compress_launches = dict(ops.LAUNCHES)
     back = TiledCompressed.from_bytes(blob)
     out = gw.decompress_tiled(back)
     torch.cuda.synchronize()
@@ -604,6 +652,8 @@ def gwlz_path(x_np, phase: str):
     check(stats.psnr_gwlz >= stats.psnr_sz - 1e-3,
           f"enhancement lost PSNR: {stats.psnr_sz} -> {stats.psnr_gwlz}")
     check(all(launches[k] > 0 for k in GWLZ_KERNELS), f"an enhancer kernel never ran: {launches}")
+    check(all(compress_launches[k] == 1 for k in LANE_KERNELS),
+          f"the GWLZ compress did not launch each lane kernel once: {compress_launches}")
     model = deserialize_model(art.extras["gwlz"])
     trained = int((np.asarray(stats.loss_history[-1]) > 0).sum())  # groups holding values
     if phase == "gwlz_all_groups":
@@ -623,7 +673,7 @@ def gwlz_path(x_np, phase: str):
           "trained_groups": trained, "active_groups": int((model.rscale > 0).sum()),
           "distinct_edges": int(torch.unique(model.edges).numel()),
           "loss_epoch0": [round(float(v), 6) for v in stats.loss_history[0]],
-          "launches": launches})
+          "compress_launches": compress_launches, "launches": launches})
     return art, model, launches
 
 
@@ -1002,19 +1052,60 @@ def gwlz_kernel_rows(par: Parity, xs, model, case: str, mode: str, with_g1: bool
     return rows
 
 
+def lane_kernel_rows(par: Parity, rows: dict, lanes, case: str, note: str) -> None:
+    """Parity and timing of symbol_hist and huffman_encode as the entropy
+    stage launches them on the int32 lanes [L, n]: once each for all lanes
+    (``entropy.encode_codes_lanes``; a single stream is L = 1)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import group_hist, huffman_encode, ref
+    from repro_torch.sz import entropy
+
+    L, n = lanes.shape
+    lo, hi = torch.aminmax(lanes, dim=1)
+    lo_h, hi_h = torch.stack([lo, hi]).cpu().numpy().astype(np.int64)
+    span = hi_h - lo_h + 1
+    nb = int(span.max())
+    check(nb <= entropy._LANES_SPAN, f"{case}: a lane spans {nb} values, past the batch")
+    par.compare("symbol_hist", case, group_hist.symbol_hist_lanes(lanes, lo, nb),
+                ref.symbol_hist_lanes_ref(lanes, lo, nb))
+    # the library call: one bincount of each symbol's bin in a flat [L * nb]
+    # histogram (those bins computed beforehand)
+    flat_bins = (lanes.to(torch.int64) - lo.to(torch.int64)[:, None]
+                 + nb * torch.arange(L, device=lanes.device)[:, None]).reshape(-1)
+    # bytes: read codes and lo, write the histograms; operations: one a symbol
+    time_row(rows, "symbol_hist", lambda: group_hist.symbol_hist_lanes(lanes, lo, nb),
+             lambda: ref.symbol_hist_lanes_ref(lanes, lo, nb), 4 * L * n + 4 * L + 4 * L * nb,
+             L * n, library=lambda: torch.bincount(flat_bins, minlength=L * nb), reps=50,
+             plain_reps=2)
+    rows["symbol_hist"]["shape_note"] = f"codes [{L}, {n}] i32, {nb} bins a lane, {note}"
+    del flat_bins
+    _, lens, cws = entropy._lanes_pack_inputs(lanes, lo, lo_h, span, entropy.DEFAULT_CHUNK)
+    par.compare("huffman_encode", case, huffman_encode.huffman_encode_pack(lens, cws),
+                ref.huffman_encode_ref(lens, cws))
+    C, cs = lens.shape
+    # bytes: read lens + codes, write words + chunk_bits; ~12 int ops a symbol
+    time_row(rows, "huffman_encode", lambda: huffman_encode.huffman_encode_pack(lens, cws),
+             lambda: ref.huffman_encode_ref(lens, cws), 12 * C * cs + 4 * C, 12 * C * cs,
+             reps=50, plain_reps=1)
+    rows["huffman_encode"]["shape_note"] = f"lens/codes [{C}, {cs}] i32, {note}"
+
+
 def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
                 mono) -> list[dict]:
     """Parity and timing of each kernel on its path's own shapes
     (``path_launches``: path -> launches of its run); the enhancer's
     kernels on both gwlz runs (``gw``: phase -> (art, model, launches)), the
     second as each row's ``all_groups``; lorenzo_quant on the szjx path
-    (``sz_art``), and huffman_decode and enhancer_fused also at the
-    monolithic shapes (``mono``: the gwlz_mono (art, model, launches))."""
+    (``sz_art``); symbol_hist and huffman_encode over all 512 lanes in one
+    launch each; and symbol_hist, huffman_encode, huffman_decode and
+    enhancer_fused also at the monolithic shapes (``mono``: the szjx stream;
+    the gwlz_mono (art, model, launches))."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels import group_hist, huffman_decode, huffman_encode, ref
-    from repro_torch.kernels import lorenzo_quant
+    from repro_torch.kernels import huffman_decode, lorenzo_quant, ref
     from repro_torch.sz import entropy, tiled
 
     dev = torch.device("cuda")
@@ -1048,51 +1139,13 @@ def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
     # the one whole-volume stream of the szjx path: one launch each over
     # every symbol / chunk (``mono``)
     mrows = {}
-    vflat = lorenzo_quant.lorenzo_quant(x, eb).reshape(-1)
-    lo, hi = torch.stack(torch.aminmax(vflat)).tolist()
-    vshift, vspan = vflat - lo, hi - lo + 1
-    par.compare("symbol_hist", "szjx_stream", group_hist.symbol_hist(vshift, vspan),
-                ref.symbol_hist_ref(vshift, vspan))
-    vshift64 = vshift.to(torch.int64)
-    time_row(mrows, "symbol_hist", lambda: group_hist.symbol_hist(vshift, vspan),
-             lambda: ref.symbol_hist_ref(vshift, vspan), 4 * vshift.numel() + 4 * vspan,
-             vshift.numel(), library=lambda: torch.bincount(vshift64, minlength=vspan),
-             reps=20, plain_reps=2)
-    mrows["symbol_hist"]["shape_note"] = f"{vshift.numel()} symbols, {vspan} bins, one stream"
-    del vshift, vshift64
-    vcodec = entropy.HuffmanCodec.fit(vflat)
-    vl, vc = vcodec._pack_inputs(vflat, entropy.DEFAULT_CHUNK)
+    vflat = lorenzo_quant.lorenzo_quant(x, eb).reshape(1, -1)
+    lane_kernel_rows(par, mrows, vflat, "szjx_stream", "one stream")
     del vflat
-    par.compare("huffman_encode", "szjx_stream", huffman_encode.huffman_encode_pack(vl, vc),
-                ref.huffman_encode_ref(vl, vc))
-    vC, vcs = vl.shape
-    time_row(mrows, "huffman_encode", lambda: huffman_encode.huffman_encode_pack(vl, vc),
-             lambda: ref.huffman_encode_ref(vl, vc), 12 * vC * vcs + 4 * vC, 12 * vC * vcs,
-             reps=20, plain_reps=1)
-    mrows["huffman_encode"]["shape_note"] = f"lens/codes [{vC}, {vcs}] i32, one stream"
-    del vl, vc
 
-    flat = codes[lane].reshape(-1)
-    lo, hi = torch.stack(torch.aminmax(flat)).tolist()
-    shifted = flat - lo
-    span = hi - lo + 1
-    par.compare("symbol_hist", "main_lane", group_hist.symbol_hist(shifted, span),
-                ref.symbol_hist_ref(shifted, span))
-    shifted64 = shifted.to(torch.int64)
-    row("symbol_hist", lambda: group_hist.symbol_hist(shifted, span),
-        lambda: ref.symbol_hist_ref(shifted, span), 4 * shifted.numel() + 4 * span,
-        shifted.numel(), library=lambda: torch.bincount(shifted64, minlength=span))
-    rows["symbol_hist"]["shape_note"] = f"{shifted.numel()} symbols, {span} bins"
-
-    codec = entropy.HuffmanCodec.fit(flat)
-    lens, cws = codec._pack_inputs(flat, entropy.DEFAULT_CHUNK)
-    par.compare("huffman_encode", "main_lane", huffman_encode.huffman_encode_pack(lens, cws),
-                ref.huffman_encode_ref(lens, cws))
-    C, cs = lens.shape
-    # bytes: read lens + codes, write words + chunk_bits; ~12 int ops a symbol
-    row("huffman_encode", lambda: huffman_encode.huffman_encode_pack(lens, cws),
-        lambda: ref.huffman_encode_ref(lens, cws), 12 * C * cs + 4 * C, 12 * C * cs)
-    rows["huffman_encode"]["shape_note"] = f"lens/codes [{C}, {cs}] i32"
+    lane_kernel_rows(par, rows, codes.reshape(codes.shape[0], -1), "main_512_lanes",
+                     "all lanes in one launch")
+    del codes
 
     dcodec, n_sym, dcs, chunk_bits, stream, _ = entropy.parse_chunked(art.tile_blobs[lane])
     cb = np.asarray(chunk_bits, np.int64)

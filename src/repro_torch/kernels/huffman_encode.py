@@ -12,6 +12,9 @@ from repro_torch.kernels import _build
 # one chunk's words live in shared memory: at most 48 KB of them (the launch
 # opts in to more than 48 KB in all)
 MAX_CHUNK = 48 * 1024 // 4
+# csrc/huffman_encode.cu: chunks up to this size take a warp each (eight to a
+# block); longer ones a block of 256 threads each
+WARP_MAX_CS = 1024
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
@@ -19,7 +22,8 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 
 def huffman_encode_pack(lens: torch.Tensor, codes: torch.Tensor):
     """lens/codes: [C, CS] int32 CUDA tensors (lengths 1..32, 0 = pad slot)
-    -> (words [C, CS] int32, chunk_bits [C] int32)."""
+    -> (words [C, CS] int32, chunk_bits [C] int32).  One launch: a warp a
+    chunk for CS <= :data:`WARP_MAX_CS`, a block a chunk above."""
     if lens.shape != codes.shape or lens.ndim != 2:
         raise ValueError(f"lens {tuple(lens.shape)} / codes {tuple(codes.shape)} "
                          "must both be [C, CS]")

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.enhancer_fused import enhancer_grouped, single_enhancer
-from repro_torch.kernels.group_hist import group_hist, symbol_hist
+from repro_torch.kernels.group_hist import group_hist, symbol_hist_lanes
 from repro_torch.kernels.huffman_decode import huffman_decode_probe
 from repro_torch.kernels.huffman_encode import huffman_encode_pack
 from repro_torch.kernels.lorenzo_quant import lorenzo_quant, lorenzo_quant_tiles
@@ -69,12 +69,19 @@ def lorenzo_decode_tiles_op(codes: torch.Tensor, eb: float) -> torch.Tensor:
     return dequantize_pre(q, eb)
 
 
+def symbol_hist_lanes_op(codes: torch.Tensor, lo: torch.Tensor | None, *,
+                         n_bins: int) -> torch.Tensor:
+    """int32 histograms [L, n_bins] of the rows of int32 codes [L, n]: row l
+    counts ``codes[l] - lo[l]`` (lo [L] int32, None: 0) inside [0, n_bins)."""
+    if _on_cuda(codes):
+        return symbol_hist_lanes(codes, lo, n_bins)
+    return ref.symbol_hist_lanes_ref(codes, lo, n_bins)
+
+
 def symbol_hist_op(symbols: torch.Tensor, *, n_bins: int) -> torch.Tensor:
     """int32 histogram [n_bins] of an int32 tensor; values outside
-    [0, n_bins) are ignored."""
-    if _on_cuda(symbols):
-        return symbol_hist(symbols, n_bins)
-    return ref.symbol_hist_ref(symbols, n_bins)
+    [0, n_bins) are ignored: the one-row call of :func:`symbol_hist_lanes_op`."""
+    return symbol_hist_lanes_op(symbols.reshape(1, -1), None, n_bins=n_bins)[0]
 
 
 def huffman_encode_op(lens: torch.Tensor, codes: torch.Tensor):

@@ -64,12 +64,25 @@ def lorenzo_quant_tiles_ref(x: torch.Tensor, eb: float) -> torch.Tensor:
     return _quant_diff(x, eb, 1)
 
 
+def symbol_hist_lanes_ref(codes: torch.Tensor, lo: torch.Tensor | None,
+                          n_bins: int) -> torch.Tensor:
+    """int32 histograms [L, n_bins] of the rows of codes [L, n]: row l counts
+    ``codes[l] - lo[l]`` (lo [L], None: 0; the difference exact, in int64)
+    inside [0, n_bins); other values are ignored."""
+    L = codes.shape[0]
+    d = codes.reshape(L, -1).to(torch.int64)
+    if lo is not None:
+        d = d - lo.to(torch.int64)[:, None]
+    d = torch.where((d >= 0) & (d < n_bins), d, n_bins)  # out of range -> a dropped bin
+    d = d + (n_bins + 1) * torch.arange(L, dtype=torch.int64, device=codes.device)[:, None]
+    hist = torch.bincount(d.reshape(-1), minlength=L * (n_bins + 1))
+    return hist.view(L, n_bins + 1)[:, :n_bins].to(torch.int32)
+
+
 def symbol_hist_ref(symbols: torch.Tensor, n_bins: int) -> torch.Tensor:
     """int32 histogram [n_bins] of ``symbols``; values outside [0, n_bins)
-    are ignored."""
-    flat = symbols.reshape(-1).to(torch.int64)
-    flat = torch.where((flat >= 0) & (flat < n_bins), flat, n_bins)
-    return torch.bincount(flat, minlength=n_bins + 1)[:n_bins].to(torch.int32)
+    are ignored: the one-row case of :func:`symbol_hist_lanes_ref`."""
+    return symbol_hist_lanes_ref(symbols.reshape(1, -1), None, n_bins)[0]
 
 
 def huffman_encode_ref(lens: torch.Tensor, codes: torch.Tensor):

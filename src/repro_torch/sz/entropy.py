@@ -4,8 +4,10 @@
 Split between host and device:
 
 * on the device (the tensor's own: CUDA kernels on the card, their plain
-  PyTorch versions on the CPU) -- the symbol histogram of ``fit``, the
-  chunk-parallel encode pack and the multi-symbol LUT decode;
+  PyTorch versions on the CPU) -- the symbol histograms of the fit, the
+  chunk-parallel encode pack and the multi-symbol LUT decode.  A batch of
+  lanes (the tiles of a GWTC container) is fitted and packed with one launch
+  of each encode kernel (:func:`encode_codes_lanes`);
 * on the host, as numpy -- the Huffman tree (``_code_lengths``), canonical
   codes, decode tables, the splice of packed chunks into one stream
   (``_splice_chunks``), zlib and the blob framing.
@@ -22,6 +24,7 @@ read yet.
 from __future__ import annotations
 
 import heapq
+import math
 import struct
 import threading
 import zlib
@@ -42,6 +45,7 @@ _LUT_BITS = 12  # primary decode-table width cap (2**k entries)
 _FMT_CODE_LEN = 32  # FROZEN in the hc/hZ blob format (chunk-table width rule)
 _MAX_CODE_LEN = _FMT_CODE_LEN  # encoder policy; must never exceed _FMT_CODE_LEN
 _DENSE_SPAN = 1 << 22  # wider alphabets are counted by torch.unique
+_LANES_SPAN = 1 << 16  # lanes up to this span are fitted and packed together
 
 
 def _chunk_bits_dtype(chunk_size: int) -> str:
@@ -436,42 +440,152 @@ class HuffmanCodec:
 # ---------------------------------------------------------------------------
 
 
+def _zlib_blob(host: np.ndarray) -> bytes:
+    """``z2``/``z4`` blob of int32 codes (host numpy)."""
+    # int32 -> int16 when it fits (usual case): halves the zlib input
+    if host.size and abs(host).max(initial=0) < 2**15:
+        payload = zlib.compress(host.astype(np.int16).tobytes(), 6)
+        tag = b"z2"
+    else:
+        payload = zlib.compress(host.tobytes(), 6)
+        tag = b"z4"
+    return _MAGIC + tag + struct.pack("<Q", host.size) + payload
+
+
+def _huffman_blob(codec: HuffmanCodec, n: int, cs: int, chunk_bits: np.ndarray, stream: bytes,
+                  total: int, backend: str) -> bytes:
+    """``hc``/``hZ`` framing of one packed stream."""
+    # chunk table + bit stream travel together so zlib sees both
+    payload = chunk_bits.astype(_chunk_bits_dtype(cs)).tobytes() + stream
+    if backend == "huffman+zlib":
+        payload = zlib.compress(payload, 6)
+        tag = b"hZ"
+    else:
+        tag = b"hc"
+    table = codec.table_bytes()
+    return (_MAGIC + tag + struct.pack("<QIII", n, cs, chunk_bits.size, len(table))
+            + table + struct.pack("<Q", total) + payload)
+
+
 def encode_codes(codes: torch.Tensor, backend: str = "huffman+zlib", *,
                  chunk_size: int | None = None) -> bytes:
     """Entropy-encode an int32 code tensor into a self-describing blob
-    (``z2``/``z4`` for zlib, ``hc``/``hZ`` for the Huffman backends)."""
-    flat = codes.reshape(-1).to(torch.int32)
+    (``z2``/``z4`` for zlib, ``hc``/``hZ`` for the Huffman backends): the
+    one-lane call of :func:`encode_codes_lanes`."""
+    return encode_codes_lanes(codes.reshape(1, -1), backend, chunk_size=chunk_size)[0]
+
+
+def encode_codes_lanes(codes: torch.Tensor, backend: str = "huffman+zlib", *,
+                       chunk_size: int | None = None) -> list[bytes]:
+    """Encode each lane ``codes[l]`` of an int32 tensor [L, ...] into its own
+    blob: exactly ``[encode_codes(codes[l], backend) for l in range(L)]``.
+
+    The Huffman backends dispatch on each lane's span (max - min + 1).  Lanes
+    spanning at most :data:`_LANES_SPAN` values are fitted and packed
+    together on their device (:func:`_encode_lanes_batched`: one lane
+    histogram launch and one encode launch for all of them); a wider lane is
+    fitted and packed alone (``HuffmanCodec.fit`` -- a dense histogram up to
+    2**22, ``torch.unique`` past it -- then ``_device_pack``), on the same
+    device.  Either way the per-symbol work stays on the device and the
+    bytes are the same."""
+    L, n = codes.shape[0], math.prod(codes.shape[1:])
+    flat = codes.reshape(L, n).to(torch.int32)
     if backend == "zlib":
         host = flat.cpu().numpy()
-        # int32 -> int16 when it fits (usual case): halves the zlib input
-        if host.size and abs(host).max(initial=0) < 2**15:
-            payload = zlib.compress(host.astype(np.int16).tobytes(), 6)
-            tag = b"z2"
-        else:
-            payload = zlib.compress(host.tobytes(), 6)
-            tag = b"z4"
-        return _MAGIC + tag + struct.pack("<Q", host.size) + payload
-    if backend in ("huffman", "huffman+zlib"):
-        codec = HuffmanCodec.fit(flat)
-        cs = int(chunk_size) if chunk_size else DEFAULT_CHUNK
-        if not 0 < cs <= MAX_CHUNK:
-            raise ValueError(f"chunk size {cs} outside 1..{MAX_CHUNK} (one chunk's "
-                             "words must fit the encode kernel's shared memory)")
-        n = flat.numel()
-        n_chunks = -(-n // cs) if n else 0
-        stream, chunk_bits, total = (codec._device_pack(flat, cs) if n_chunks
-                                     else (b"", np.zeros(0, np.int64), 0))
-        # chunk table + bit stream travel together so zlib sees both
-        payload = chunk_bits.astype(_chunk_bits_dtype(cs)).tobytes() + stream
-        if backend == "huffman+zlib":
-            payload = zlib.compress(payload, 6)
-            tag = b"hZ"
-        else:
-            tag = b"hc"
-        table = codec.table_bytes()
-        return (_MAGIC + tag + struct.pack("<QIII", n, cs, n_chunks, len(table))
-                + table + struct.pack("<Q", total) + payload)
-    raise ValueError(f"unknown entropy backend {backend!r}")
+        return [_zlib_blob(host[i]) for i in range(L)]
+    if backend not in ("huffman", "huffman+zlib"):
+        raise ValueError(f"unknown entropy backend {backend!r}")
+    cs = int(chunk_size) if chunk_size else DEFAULT_CHUNK
+    if not 0 < cs <= MAX_CHUNK:
+        raise ValueError(f"chunk size {cs} outside 1..{MAX_CHUNK} (one chunk's "
+                         "words must fit the encode kernel's shared memory)")
+    if L == 0 or n == 0:
+        empty = HuffmanCodec(np.zeros(0, np.int32), np.zeros(0, np.int64),
+                             np.zeros(0, np.uint64))
+        return [_huffman_blob(empty, 0, cs, np.zeros(0, np.int64), b"", 0, backend)] * L
+    lo, hi = torch.aminmax(flat, dim=1)
+    lo_h, hi_h = torch.stack([lo, hi]).cpu().numpy().astype(np.int64)
+    span = hi_h - lo_h + 1
+    blobs: list[bytes] = [b""] * L
+    for i in np.flatnonzero(span > _LANES_SPAN):
+        codec = HuffmanCodec.fit(flat[i])
+        stream, chunk_bits, total = codec._device_pack(flat[i], cs)
+        blobs[i] = _huffman_blob(codec, n, cs, chunk_bits, stream, total, backend)
+    batch = np.flatnonzero(span <= _LANES_SPAN)
+    if batch.size:
+        if batch.size < L:
+            keep = torch.from_numpy(batch).to(flat.device)
+            flat, lo = flat[keep], lo[keep]
+        for i, blob in zip(batch, _encode_lanes_batched(flat, lo, lo_h[batch], span[batch],
+                                                        cs, backend)):
+            blobs[i] = blob
+    return blobs
+
+
+def _encode_lanes_batched(flat: torch.Tensor, lo: torch.Tensor, lo_h: np.ndarray,
+                          span: np.ndarray, cs: int, backend: str) -> list[bytes]:
+    """Huffman blobs of the lanes ``flat`` [L, n] (int32; lane minima ``lo``
+    on the device and ``lo_h`` on the host; spans ``span``): the inputs of
+    :func:`_lanes_pack_inputs`, one encode launch over all lanes' chunks,
+    one copy back of the chunk bits and one of the words up to the widest
+    chunk, then per lane on the host the splice, framing and zlib."""
+    L, n = flat.shape
+    codecs, lens, cws = _lanes_pack_inputs(flat, lo, lo_h, span, cs)
+    words, chunk_bits = ops.huffman_encode_op(lens, cws)
+    del lens, cws
+    C = -(-n // cs)
+    bits = chunk_bits.cpu().numpy().astype(np.int64).reshape(L, C)
+    used = -(-int(bits.max()) // 32)  # words past the widest chunk are zero
+    local = words[:, :used].contiguous().cpu().numpy().view(np.uint32).reshape(L, C, used)
+    blobs = []
+    for i in range(L):
+        stream, total = _splice_chunks(local[i, :, : -(-int(bits[i].max()) // 32)], bits[i])
+        blobs.append(_huffman_blob(codecs[i], n, cs, bits[i], stream, total, backend))
+    return blobs
+
+
+def _lanes_pack_inputs(flat: torch.Tensor, lo: torch.Tensor, lo_h: np.ndarray,
+                       span: np.ndarray, cs: int):
+    """Fit every lane of ``flat`` [L, n] and build the encode kernel's
+    inputs for all of them: (codecs, lens, codes), lens/codes [L * C, cs]
+    int32 with C = ceil(n / cs) chunks a lane.
+
+    1. one histogram launch for all lanes, one copy back of [L, max span];
+    2. per lane on the host: the length-limited tree and canonical codes;
+    3. one upload of every lane's length and code tables, concatenated, with
+       a zero-length entry at the end and each lane's offset;
+    4. on the device, each symbol's table index: the lane's offset plus the
+       symbol's rank among the lane's present values (cumsum of hist > 0),
+       gathered at once; the pad slots of each lane's last chunk point at
+       the zero-length entry, so no chunk crosses a lane."""
+    dev = flat.device
+    L, n = flat.shape
+    hist = ops.symbol_hist_lanes_op(flat, lo, n_bins=int(span.max()))
+    counts = hist.cpu().numpy()
+    codecs = []
+    for i in range(L):
+        present = np.flatnonzero(counts[i])
+        lengths = _limited_code_lengths(counts[i, present])
+        codecs.append(HuffmanCodec((present + lo_h[i]).astype(np.int32), lengths,
+                                   _canonical_codes(lengths)))
+    sizes = np.array([c.alphabet.size for c in codecs], np.int64)
+    n_tab = int(sizes.sum())
+    host = np.zeros(2 * (n_tab + 1) + L, np.int32)  # lengths | codes | lane offsets
+    host[:n_tab] = np.concatenate([c.lengths for c in codecs])
+    host[n_tab + 1 : 2 * n_tab + 1] = np.concatenate(
+        [c.codes.astype(np.uint32) for c in codecs]).view(np.int32)
+    host[2 * (n_tab + 1) :] = np.cumsum(sizes) - sizes
+    tab = torch.from_numpy(host).to(dev)
+    lens_tab, codes_tab, offsets = tab[: n_tab + 1], tab[n_tab + 1 : 2 * (n_tab + 1)], tab[-L:]
+    rank = torch.cumsum(hist > 0, dim=1) - 1 + offsets.to(torch.int64)[:, None]
+    sym = flat.to(torch.int64)
+    sym -= lo.to(torch.int64)[:, None]
+    idx = torch.gather(rank, 1, sym)
+    del rank, sym
+    C = -(-n // cs)
+    if C * cs > n:
+        idx = torch.cat([idx, idx.new_full((L, C * cs - n), n_tab)], dim=1)
+    return codecs, lens_tab[idx].view(L * C, cs), codes_tab[idx].view(L * C, cs)
 
 
 _CODEC_CACHE: dict[bytes, HuffmanCodec] = {}

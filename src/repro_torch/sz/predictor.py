@@ -85,6 +85,12 @@ class TilePredictor:
         """Serialize tile ``i`` of a payload to one lane."""
         raise NotImplementedError
 
+    def lane_bytes_batch(self, payload: dict, n: int, backend: str) -> list[bytes]:
+        """Serialize all ``n`` tiles of a payload.  The default loops
+        :meth:`lane_bytes`; a predictor may batch the device encode across
+        lanes."""
+        return [self.lane_bytes(payload, i, backend) for i in range(n)]
+
     def parse_lane(self, blob: bytes, *, tile: tuple[int, ...], levels: int,
                    device: torch.device) -> dict:
         """Inverse of :meth:`lane_bytes`: one lane -> unbatched payload on
@@ -120,6 +126,11 @@ class _LorenzoTiles(TilePredictor):
         from repro_torch.sz import entropy
 
         return entropy.encode_codes(payload["codes"][i], backend)
+
+    def lane_bytes_batch(self, payload, n, backend):
+        from repro_torch.sz import entropy
+
+        return entropy.encode_codes_lanes(payload["codes"][:n], backend)
 
     def parse_lane(self, blob, *, tile, levels, device):
         from repro_torch.sz import entropy

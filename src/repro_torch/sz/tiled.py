@@ -398,7 +398,7 @@ def compress_tiled(x, tile=(64, 64, 64), *, rel_eb: float | None = None,
     tiles = split_tiles(pad_to_tiles(x, tile), tile)
     payload, recon_tiles = pred.encode_tiles(tiles, eb, order=order, levels=levels)
     recon = stitch_tiles(recon_tiles, tile_grid(tuple(x.shape), tile))
-    blobs = [pred.lane_bytes(payload, i, backend) for i in range(tiles.shape[0])]
+    blobs = pred.lane_bytes_batch(payload, tiles.shape[0], backend)
     artifact = TiledCompressed(
         shape=tuple(x.shape), tile=tile, eb_abs=eb, backend=backend,
         tile_blobs=blobs, predictor=predictor, order=order, levels=levels)

@@ -363,3 +363,81 @@ def test_enhancer_grouped_edges_match_plain_version(cuda, case, mode):
     assert torch.equal(ops.enhancer_grouped_op(x[1:], ids[1:], packed, mode=mode), got[1:])
     if case == "twenty_groups_a_block":
         assert torch.unique(ids[0]).numel() == 20
+
+
+@pytest.mark.parametrize("case", ["L1", "L512", "skewed", "smem_limit", "past_smem_limit",
+                                  "span_above_2^16", "misaligned_rows"])
+def test_symbol_hist_lanes_kernel_matches_plain_version(cuda, case):
+    """The lane histogram kernel against its plain version: one row (spread
+    over the card, global merge) and 512 (a block a row), lanes piled on one
+    bin, spans at the shared-memory limit and past it (global bins), and
+    rows that start off a 16-byte boundary; every launch counted once."""
+    from repro_torch.kernels.group_hist import SMEM_BINS, symbol_hist_lanes
+
+    rng = np.random.default_rng(len(case))
+    L, n, span = {"L1": (1, 1_000_003, 994), "L512": (512, 4096, 62),
+                  "skewed": (64, 65536, 300), "smem_limit": (8, 100_000, SMEM_BINS),
+                  "past_smem_limit": (8, 100_000, SMEM_BINS + 1),
+                  "span_above_2^16": (4, 300_001, 70_000),
+                  "misaligned_rows": (33, 4099, 500)}[case]
+    lo = rng.integers(-1000, 1000, L).astype(np.int32)
+    codes = lo[:, None] + rng.integers(-3, span + 3, (L, n)).astype(np.int32)
+    if case == "skewed":  # most of every lane on one bin, the rest on two
+        codes = np.where(rng.random((L, n)) < 0.97, lo[:, None] + 5,
+                         lo[:, None] + rng.integers(0, 2, (L, n))).astype(np.int32)
+    ct, lt = torch.from_numpy(codes).to(cuda), torch.from_numpy(lo).to(cuda)
+    ops.reset_launches()
+    got = symbol_hist_lanes(ct, lt, span)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["symbol_hist"] == 1
+    assert torch.equal(got, ref.symbol_hist_lanes_ref(ct, lt, span))
+    assert torch.equal(ops.symbol_hist_lanes_op(ct[:, 1:], None, n_bins=span),
+                       ref.symbol_hist_lanes_ref(ct[:, 1:], None, span))
+
+
+@pytest.mark.parametrize("cs", [1, 31, 255, 256, 257, 1024, 1025, "max"])
+def test_huffman_encode_kernel_chunk_sizes(cuda, cs):
+    """The encode kernel against its plain version in both forms (a warp a
+    chunk up to WARP_MAX_CS, a block a chunk above, up to MAX_CHUNK), with
+    pad slots in the last chunk and 32-bit codes among short ones."""
+    from repro_torch.kernels.huffman_encode import MAX_CHUNK, huffman_encode_pack
+
+    cs = MAX_CHUNK if cs == "max" else cs
+    rng = np.random.default_rng(cs)
+    fib = [1, 1] + [2 ** i for i in range(1, 45)]
+    L32 = entropy._limited_code_lengths(np.asarray(fib, np.int64))
+    assert int(L32.max()) == 32
+    codec = entropy.HuffmanCodec(np.arange(L32.size, dtype=np.int32), L32,
+                                 entropy._canonical_codes(L32))
+    sym = rng.choice(np.arange(6, dtype=np.int32), 3 * cs * 9 + 5)  # pad slots at the end
+    sym[::37] = L32.size - 1  # 32-bit codes
+    flat = torch.from_numpy(sym).to(cuda)
+    lens, cws = codec._pack_inputs(flat, cs)
+    ops.reset_launches()
+    words, bits = huffman_encode_pack(lens, cws)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["huffman_encode"] == 1
+    want_words, want_bits = ref.huffman_encode_ref(lens, cws)
+    assert torch.equal(words, want_words) and torch.equal(bits, want_bits)
+    # rows that start off a 16-byte boundary take the scalar loads
+    C = lens.shape[0]
+    lens, cws = (t.reshape(-1)[1 : 1 + (C - 1) * cs].view(C - 1, cs) for t in (lens, cws))
+    words, bits = huffman_encode_pack(lens, cws)
+    want_words, want_bits = ref.huffman_encode_ref(lens, cws)
+    assert torch.equal(words, want_words) and torch.equal(bits, want_bits)
+
+
+def test_tiled_compress_launches_each_encode_kernel_once(cuda):
+    """A tiled compress fits and packs all its lanes with one launch of each
+    encode kernel, and its bytes equal the CPU's; a lane past the batch span
+    cap adds one launch of each."""
+    rng = np.random.default_rng(15)
+    x = np.exp(rng.normal(8, 1, (48, 40, 36))).astype(np.float32)
+    for spike, extra in ((False, 0), (True, 1)):
+        if spike:
+            x[5, 6, 7] = 5e6  # codes of ~5e5: a span past 2**16, inside the dense 2**22
+        ops.reset_launches()
+        card, _ = compress_tiled(x, 16, abs_eb=5.0)
+        counts = dict(ops.LAUNCHES)
+        assert counts["symbol_hist"] == 1 + extra and counts["huffman_encode"] == 1 + extra
+        assert card.to_bytes() == compress_tiled(x, 16, abs_eb=5.0, device="cpu")[0].to_bytes()
