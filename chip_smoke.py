@@ -10,8 +10,10 @@ Phases (any failure raises and the script exits non-zero):
               and time it;
 2. edges   -- each kernel against its plain PyTorch version on the card on
               edge cases; bit for bit (tolerance 0) for the integer kernels:
-              .5 ties, negatives, |q| near 2**25, ragged tiles and ranks
-              0-2, z across the volume kernel's 32-plane segments, spans
+              .5 ties, negatives, |q| near 2**25 and 2**31 (wrapping
+              differences), X % 4 of 1-3, ragged tiles, rows and bases off
+              16 bytes, X = 1, Z = 1 and ranks 0-2, z across the 32-plane
+              segments a warp marches at each vector width; spans
               above 4096, short last chunks, codes longer than the 12-bit
               LUT up to the 32-bit maximum codeword; the lane histogram at
               L = 1 and 512, lanes piled on one bin, spans at the
@@ -84,7 +86,10 @@ Phases (any failure raises and the script exits non-zero):
               tiled compress's one launch over all 512 lanes; group_hist and
               enhancer_fused on both gwlz runs' decodes; symbol_hist,
               huffman_encode, huffman_decode and enhancer_fused also at the
-              monolithic shapes (``mono``);
+              monolithic shapes (``mono``).  Where a parent commit's tree is
+              unpacked in build/parent (``git archive``), its two Lorenzo
+              kernels are built from there, checked equal to this tree's and
+              timed beside them on the same inputs (``parent``);
 11. cpu    -- the 128^3 corner compressed on the card and on the CPU gives
               identical GWTC bytes;
 12. golden -- tests/golden/gwtc_v1.bin and szjx_lorenzo.bin decode on the
@@ -118,10 +123,9 @@ ROI = ((100, 228), (37, 101), (300, 364))
 BIG_EB = 0.5  # bigstream: integer noise on [0, 2**16), ~17.7 bits a value, > 2**31 bits
 KERNELS = {  # counter name -> (source, TPU kernel it replaces, __global__ name prefix)
     "lorenzo_quant_tiles": ("src/repro_torch/csrc/lorenzo_quant.cu",
-                            "src/repro/kernels/lorenzo_quant.py:87",
-                            "lorenzo_quant_tiles_kernel"),
+                            "src/repro/kernels/lorenzo_quant.py:87", "lorenzo_rows_kernel"),
     "lorenzo_quant": ("src/repro_torch/csrc/lorenzo_quant.cu",
-                      "src/repro/kernels/lorenzo_quant.py:55", "lorenzo_quant_volume_kernel"),
+                      "src/repro/kernels/lorenzo_quant.py:55", "lorenzo_rows_kernel"),
     "symbol_hist": ("src/repro_torch/csrc/symbol_hist.cu",
                     "src/repro/kernels/group_hist.py:53", "symbol_hist_lanes_kernel"),
     "huffman_encode": ("src/repro_torch/csrc/huffman_encode.cu",
@@ -142,6 +146,11 @@ SZJX_KERNELS = ("lorenzo_quant", "huffman_encode", "huffman_decode")  # needed o
 LAUNCH_PATH = {**{k: "main" for k in KERNELS}, "lorenzo_quant": "szjx",
                **{k: "gwlz" for k in GWLZ_KERNELS}}
 ENHANCE_RTOL = 1e-5  # |kernel - plain| <= ENHANCE_RTOL * (1 + max|plain|)
+# a parent commit's tree, unpacked with git archive: its Lorenzo kernels are
+# timed beside this tree's in the same run when it is there
+PARENT = ROOT / "build" / "parent"
+PARENT_LORENZO = {"lorenzo_quant_tiles": "lorenzo_quant_tiles_kernel",  # name -> its __global__
+                  "lorenzo_quant": "lorenzo_quant_volume_kernel"}
 
 
 def emit(obj) -> None:
@@ -317,33 +326,61 @@ def edge_parity(par: Parity) -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
 
-    # lorenzo: ties, negatives, |q| near 2**25, ragged tiles, ranks 1-3
+    # lorenzo: .5 ties, negatives, |q| near 2**25 and 2**31 (the int32
+    # differences wrap), X % 4 of 1-3, tiles and rows off 16 bytes (5x13x37,
+    # X = 66, a base 4 bytes past an aligned one), X = 1, Z = 1, ranks 1-3:
+    # the tile kernel on each batch, the volume kernel on its first tile
     eb = 0.75
     two = float(np.float32(eb) * 2)
-    ties = ((rng.integers(-4000, 4000, (3, 5, 13, 37)) + 0.5) * two).astype(np.float32)
-    cases = {
-        "ties_negatives_ragged": ties,
-        "q_near_2^25": (rng.uniform(-1, 1, (2, 9, 40, 33)) * 2**25 * two).astype(np.float32),
-        "rank1": rng.normal(0, 50, (4, 70)).astype(np.float32),
-        "rank2": rng.normal(0, 50, (4, 17, 45)).astype(np.float32),
-        "tile_64^3": rng.normal(0, 100, (3, 64, 64, 64)).astype(np.float32),
-    }
-    for case, x in cases.items():
-        xt = torch.from_numpy(x).to(dev)
+
+    def lorenzo_x(kind: str, shape) -> np.ndarray:
+        if kind == "ties":
+            return np.asarray((rng.integers(-4000, 4000, shape) + 0.5) * two, np.float32)
+        if kind.startswith("q_"):  # q_<bits>: |q| up to 0.999 * 2**bits
+            bits = int(kind[2:])
+            return np.asarray(rng.uniform(-1, 1, shape) * 0.999 * 2**bits * two, np.float32)
+        return np.asarray(rng.normal(0, 50, shape), np.float32)
+
+    def on_card(x: np.ndarray, off: bool):
+        if not off:
+            return torch.from_numpy(x).to(dev)
+        t = torch.empty(x.size + 1, dtype=torch.float32, device=dev)[1:].view(x.shape)
+        return t.copy_(torch.from_numpy(x))
+
+    for case, (kind, shape) in {
+        "ties_negatives_ragged_5x13x37": ("ties", (3, 5, 13, 37)),
+        "q_near_2^25": ("q_25", (2, 9, 40, 33)),
+        "q_near_2^31_x132": ("q_31", (2, 9, 40, 132)),
+        "q_near_2^31_x64": ("q_31", (3, 8, 8, 64)),
+        "x_mod4_1": ("normal", (2, 5, 9, 129)),
+        "x_mod4_2": ("normal", (2, 5, 9, 130)),
+        "x_mod4_3": ("normal", (2, 5, 9, 131)),
+        "x66_rows_off_16B": ("ties", (4, 5, 13, 66)),
+        "base_off_16B": ("ties", (2, 4, 8, 512)),
+        "x1": ("normal", (3, 4, 7, 1)),
+        "z1": ("normal", (3, 1, 7, 200)),
+        "z1_y1_x1": ("normal", (5, 1, 1, 1)),
+        "rank1": ("normal", (4, 70)),
+        "rank2": ("normal", (4, 17, 45)),
+        "tile_64^3": ("normal", (3, 64, 64, 64)),
+    }.items():
+        xt = on_card(lorenzo_x(kind, shape), case == "base_off_16B")
         par.compare("lorenzo_quant_tiles", case, lorenzo_quant.lorenzo_quant_tiles(xt, eb),
                     ref.lorenzo_quant_tiles_ref(xt, eb))
-    # the whole-volume kernel: z across its 32-plane segments, ragged windows,
-    # ranks 0-2
-    for case, x in {
-        "ties_negatives_ragged": ties[0],
-        "q_near_2^25": cases["q_near_2^25"][0],
-        "z33_segments": rng.normal(0, 100, (33, 17, 45)).astype(np.float32),
-        "z64_x70": rng.normal(0, 100, (64, 9, 70)).astype(np.float32),
-        "rank2": cases["rank2"][0],
-        "rank1": cases["rank1"][0],
-        "rank0": np.float32(3.7 * two),
+        par.compare("lorenzo_quant", case, lorenzo_quant.lorenzo_quant(xt[0], eb),
+                    ref.lorenzo_quant_ref(xt[0], eb))
+    # the volume kernel: Z across its 32-plane segments at each vector width
+    # (X = 128: 4 cells a lane, 66: 2, 45 and 37: 1), and rank 0
+    for case, (kind, shape) in {
+        "z33_segments": ("normal", (33, 17, 45)),
+        "z64_x70": ("normal", (64, 9, 70)),
+        "z70_x128_ties": ("ties", (70, 9, 128)),
+        "z65_x66_q_near_2^31": ("q_31", (65, 5, 66)),
+        "z31_x512_q_near_2^31": ("q_31", (31, 3, 512)),
+        "z65_x37_ties": ("ties", (65, 3, 37)),
+        "rank0": ("ties", ()),
     }.items():
-        xt = torch.from_numpy(np.asarray(x)).to(dev)
+        xt = on_card(lorenzo_x(kind, shape), False)
         par.compare("lorenzo_quant", case, lorenzo_quant.lorenzo_quant(xt, eb),
                     ref.lorenzo_quant_ref(xt, eb))
 
@@ -1092,6 +1129,54 @@ def lane_kernel_rows(par: Parity, rows: dict, lanes, case: str, note: str) -> No
     rows["huffman_encode"]["shape_note"] = f"lens/codes [{C}, {cs}] i32, {note}"
 
 
+def parent_lorenzo():
+    """The parent tree's Lorenzo kernels (``PARENT``), built from its source
+    with this tree's nvcc flags, as two callables ``(x, eb, out)`` of the
+    same C entry points, keyed as ``PARENT_LORENZO``; None without a
+    parent tree."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build, lorenzo_quant
+    from repro_torch.kernels.ref import two_eb_f32
+
+    src = PARENT / "src" / "repro_torch" / "csrc" / "lorenzo_quant.cu"
+    if not src.exists():
+        return None
+    lib_path = _build.BUILD_DIR / "parent_liblorenzo_quant.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(lib_path))
+    tiles, volume = lib.lorenzo_quant_tiles, lib.lorenzo_quant_volume
+    tiles.argtypes, volume.argtypes = lorenzo_quant._ARGTYPES, lorenzo_quant._VOLUME_ARGTYPES
+    tiles.restype = volume.restype = ctypes.c_int
+
+    def call(fn, shape_args):
+        def run(x, eb, out):
+            err = fn(x.data_ptr(), out.data_ptr(), *shape_args(x), two_eb_f32(eb),
+                     torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"the parent's {fn.__name__} failed: cudaError {err}")
+        return run
+
+    return {"lorenzo_quant_tiles": call(tiles, lambda x: tuple(x.shape)),
+            "lorenzo_quant": call(volume, lambda x: tuple(x.shape))}
+
+
+def parent_row(rows: dict, name: str, parent, x, eb, want) -> None:
+    """Check the parent's kernel ``name`` on ``x`` against this tree's output
+    ``want`` and time it as this tree's row was (its own device time)."""
+    import torch
+
+    out = torch.empty_like(want)
+    parent[name](x, eb, out)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), f"the parent's {name} differs from this tree's")
+    ms, ms_by = kernel_ms(lambda: parent[name](x, eb, out), PARENT_LORENZO[name], reps=20)
+    rows[name]["parent"] = {"ms": ms, "ms_by": ms_by, "source": str(PARENT.relative_to(ROOT))}
+
+
 def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
                 mono) -> list[dict]:
     """Parity and timing of each kernel on its path's own shapes
@@ -1126,15 +1211,20 @@ def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
     row("lorenzo_quant_tiles", lambda: lorenzo_quant.lorenzo_quant_tiles(tiles, eb),
         lambda: ref.lorenzo_quant_tiles_ref(tiles, eb), 8 * n, 8 * n, reps=20, plain_reps=5)
     rows["lorenzo_quant_tiles"]["shape_note"] = f"x {list(tiles.shape)} f32"
+    parent = parent_lorenzo()
+    if parent:
+        parent_row(rows, "lorenzo_quant_tiles", parent, tiles, eb, codes)
 
     vcodes = lorenzo_quant.lorenzo_quant(x, eb)
     par.compare("lorenzo_quant", "szjx_512^3", vcodes, ref.lorenzo_quant_ref(x, eb))
-    del vcodes
     n = x.numel()
     # bytes: read x, write codes; operations: 1 division + 7 adds per element
     row("lorenzo_quant", lambda: lorenzo_quant.lorenzo_quant(x, eb),
         lambda: ref.lorenzo_quant_ref(x, eb), 8 * n, 8 * n, reps=20, plain_reps=5)
     rows["lorenzo_quant"]["shape_note"] = f"x {list(x.shape)} f32, whole volume"
+    if parent:
+        parent_row(rows, "lorenzo_quant", parent, x, eb, vcodes)
+    del vcodes
 
     # the one whole-volume stream of the szjx path: one launch each over
     # every symbol / chunk (``mono``)
@@ -1214,7 +1304,8 @@ def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
                     "launches_path": path,
                     "launches_by_path": {p: ls[name] for p, ls in path_launches.items()},
                     **({"tolerance": par.tol[name]} if par.tol[name] else {}),
-                    **{k: r[k] for k in ("flop", "g1", "all_groups", "mono") if k in r}})
+                    **{k: r[k] for k in ("flop", "g1", "all_groups", "mono", "parent")
+                       if k in r}})
     return out
 
 

@@ -20,7 +20,16 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
 _VOLUME_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
-_SEG_Z = 32  # csrc/lorenzo_quant.cu: z-planes per block of the volume kernel
+_SEG_Z = 32  # csrc/lorenzo_quant.cu: z-planes a warp marches
+
+
+def _check_grid(B: int, Z: int, Y: int, X: int, what: str) -> None:
+    """Refuse shapes past the kernel's grid: at most 2**31 - 1 blocks of four
+    warps, a warp per 32 planes x 4 rows x 32 cells at the narrowest
+    (csrc/lorenzo_quant.cu, VEC = 1)."""
+    warps = B * -(-Z // _SEG_Z) * -(-Y // 4) * -(-X // 32)
+    if max(Z, Y, X) >= 2**31 or -(-warps // 4) >= 2**31:
+        raise ValueError(f"{what} exceeds the kernel's grid")
 
 
 def lorenzo_quant_tiles(x: torch.Tensor, eb: float) -> torch.Tensor:
@@ -39,8 +48,7 @@ def lorenzo_quant_tiles(x: torch.Tensor, eb: float) -> torch.Tensor:
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     if x.numel() == 0:
         return out
-    if max(Z, Y, X) >= 2**31 or x.shape[0] * -(-X // 32) * -(-Y // 8) >= 2**31:
-        raise ValueError(f"tile batch {tuple(x.shape)} exceeds the kernel's grid")
+    _check_grid(x.shape[0], Z, Y, X, f"tile batch {tuple(x.shape)}")
     with torch.cuda.device(x.device):
         _build.launch("lorenzo_quant_tiles", "lorenzo_quant", "lorenzo_quant_tiles",
                       _ARGTYPES, x.data_ptr(), out.data_ptr(), x.shape[0], Z, Y, X,
@@ -64,8 +72,7 @@ def lorenzo_quant(x: torch.Tensor, eb: float) -> torch.Tensor:
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     if x.numel() == 0:
         return out
-    if max(Z, Y, X) >= 2**31 or -(-Z // _SEG_Z) * -(-X // 32) * -(-Y // 8) >= 2**31:
-        raise ValueError(f"volume {tuple(x.shape)} exceeds the kernel's grid")
+    _check_grid(1, Z, Y, X, f"volume {tuple(x.shape)}")
     with torch.cuda.device(x.device):
         _build.launch("lorenzo_quant", "lorenzo_quant", "lorenzo_quant_volume",
                       _VOLUME_ARGTYPES, x.data_ptr(), out.data_ptr(), Z, Y, X,

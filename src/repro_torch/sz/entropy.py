@@ -46,6 +46,7 @@ _FMT_CODE_LEN = 32  # FROZEN in the hc/hZ blob format (chunk-table width rule)
 _MAX_CODE_LEN = _FMT_CODE_LEN  # encoder policy; must never exceed _FMT_CODE_LEN
 _DENSE_SPAN = 1 << 22  # wider alphabets are counted by torch.unique
 _LANES_SPAN = 1 << 16  # lanes up to this span are fitted and packed together
+_HIST_BINS = 1 << 26  # rows x bins of one batched lane histogram (and its rank table)
 
 
 def _chunk_bits_dtype(chunk_size: int) -> str:
@@ -442,8 +443,10 @@ class HuffmanCodec:
 
 def _zlib_blob(host: np.ndarray) -> bytes:
     """``z2``/``z4`` blob of int32 codes (host numpy)."""
-    # int32 -> int16 when it fits (usual case): halves the zlib input
-    if host.size and abs(host).max(initial=0) < 2**15:
+    # int32 -> int16 when it fits (usual case): halves the zlib input.  The
+    # reference tests abs(codes) < 2**15, which passes -2**31 (its abs wraps)
+    # and then writes it as 0; this test agrees with it on every other input.
+    if host.size and -(2**15) < host.min() and host.max() < 2**15:
         payload = zlib.compress(host.astype(np.int16).tobytes(), 6)
         tag = b"z2"
     else:
@@ -483,11 +486,12 @@ def encode_codes_lanes(codes: torch.Tensor, backend: str = "huffman+zlib", *,
     The Huffman backends dispatch on each lane's span (max - min + 1).  Lanes
     spanning at most :data:`_LANES_SPAN` values are fitted and packed
     together on their device (:func:`_encode_lanes_batched`: one lane
-    histogram launch and one encode launch for all of them); a wider lane is
-    fitted and packed alone (``HuffmanCodec.fit`` -- a dense histogram up to
-    2**22, ``torch.unique`` past it -- then ``_device_pack``), on the same
-    device.  Either way the per-symbol work stays on the device and the
-    bytes are the same."""
+    histogram launch, or a few where their histograms together would pass
+    :data:`_HIST_BINS` bins, and one encode launch for all of them); a wider
+    lane is fitted and packed alone (``HuffmanCodec.fit`` -- a dense
+    histogram up to 2**22, ``torch.unique`` past it -- then
+    ``_device_pack``), on the same device.  Either way the per-symbol work
+    stays on the device and the bytes are the same."""
     L, n = codes.shape[0], math.prod(codes.shape[1:])
     flat = codes.reshape(L, n).to(torch.int32)
     if backend == "zlib":
@@ -544,47 +548,70 @@ def _encode_lanes_batched(flat: torch.Tensor, lo: torch.Tensor, lo_h: np.ndarray
     return blobs
 
 
+def _hist_batches(span: np.ndarray, budget: int) -> list[np.ndarray]:
+    """Lane indices in batches whose rows x widest span stays within
+    ``budget`` (a lane wider than the budget alone): all lanes in order when
+    they fit at once, else by ascending span."""
+    L = span.size
+    if L * int(span.max()) <= budget:
+        return [np.arange(L)]
+    order = np.argsort(span, kind="stable")
+    batches, start = [], 0
+    for j in range(1, L + 1):
+        if j == L or (j - start + 1) * int(span[order[j]]) > budget:
+            batches.append(order[start:j])
+            start = j
+    return batches
+
+
 def _lanes_pack_inputs(flat: torch.Tensor, lo: torch.Tensor, lo_h: np.ndarray,
                        span: np.ndarray, cs: int):
     """Fit every lane of ``flat`` [L, n] and build the encode kernel's
     inputs for all of them: (codecs, lens, codes), lens/codes [L * C, cs]
     int32 with C = ceil(n / cs) chunks a lane.
 
-    1. one histogram launch for all lanes, one copy back of [L, max span];
-    2. per lane on the host: the length-limited tree and canonical codes;
-    3. one upload of every lane's length and code tables, concatenated, with
+    1. for each batch of :func:`_hist_batches` (one for all lanes unless
+       L x max span passes :data:`_HIST_BINS`), one histogram launch
+       [rows, widest span], one copy back, and per lane on the host the
+       length-limited tree and canonical codes; on the device each symbol's
+       rank among its lane's present values (cumsum of hist > 0);
+    2. one upload of every lane's length and code tables, concatenated, with
        a zero-length entry at the end and each lane's offset;
-    4. on the device, each symbol's table index: the lane's offset plus the
-       symbol's rank among the lane's present values (cumsum of hist > 0),
-       gathered at once; the pad slots of each lane's last chunk point at
-       the zero-length entry, so no chunk crosses a lane."""
+    3. each symbol's table index, its rank plus its lane's offset, gathered
+       at once; the pad slots of each lane's last chunk point at the
+       zero-length entry, so no chunk crosses a lane."""
     dev = flat.device
     L, n = flat.shape
-    hist = ops.symbol_hist_lanes_op(flat, lo, n_bins=int(span.max()))
-    counts = hist.cpu().numpy()
-    codecs = []
-    for i in range(L):
-        present = np.flatnonzero(counts[i])
-        lengths = _limited_code_lengths(counts[i, present])
-        codecs.append(HuffmanCodec((present + lo_h[i]).astype(np.int32), lengths,
-                                   _canonical_codes(lengths)))
+    C = -(-n // cs)
+    idx = torch.empty((L, C * cs), dtype=torch.int32, device=dev)
+    codecs: list[HuffmanCodec] = [None] * L  # type: ignore[list-item]
+    for rows in _hist_batches(span, _HIST_BINS):
+        sel = slice(None) if rows.size == L else torch.from_numpy(rows).to(dev)
+        part, part_lo = flat[sel], lo[sel]
+        hist = ops.symbol_hist_lanes_op(part, part_lo, n_bins=int(span[rows].max()))
+        counts = hist.cpu().numpy()
+        for j, i in enumerate(rows):
+            present = np.flatnonzero(counts[j])
+            lengths = _limited_code_lengths(counts[j, present])
+            codecs[i] = HuffmanCodec((present + lo_h[i]).astype(np.int32), lengths,
+                                     _canonical_codes(lengths))
+        rank = torch.cumsum(hist > 0, dim=1, dtype=torch.int32)
+        del hist
+        sym = part.to(torch.int64)
+        sym -= part_lo.to(torch.int64)[:, None]
+        idx[sel, :n] = torch.gather(rank, 1, sym)
+        del rank, sym, part
     sizes = np.array([c.alphabet.size for c in codecs], np.int64)
     n_tab = int(sizes.sum())
     host = np.zeros(2 * (n_tab + 1) + L, np.int32)  # lengths | codes | lane offsets
     host[:n_tab] = np.concatenate([c.lengths for c in codecs])
     host[n_tab + 1 : 2 * n_tab + 1] = np.concatenate(
         [c.codes.astype(np.uint32) for c in codecs]).view(np.int32)
-    host[2 * (n_tab + 1) :] = np.cumsum(sizes) - sizes
+    host[2 * (n_tab + 1) :] = np.cumsum(sizes) - sizes - 1  # the rank counts from 1
     tab = torch.from_numpy(host).to(dev)
     lens_tab, codes_tab, offsets = tab[: n_tab + 1], tab[n_tab + 1 : 2 * (n_tab + 1)], tab[-L:]
-    rank = torch.cumsum(hist > 0, dim=1) - 1 + offsets.to(torch.int64)[:, None]
-    sym = flat.to(torch.int64)
-    sym -= lo.to(torch.int64)[:, None]
-    idx = torch.gather(rank, 1, sym)
-    del rank, sym
-    C = -(-n // cs)
-    if C * cs > n:
-        idx = torch.cat([idx, idx.new_full((L, C * cs - n), n_tab)], dim=1)
+    idx[:, :n] += offsets[:, None]
+    idx[:, n:] = n_tab
     return codecs, lens_tab[idx].view(L * C, cs), codes_tab[idx].view(L * C, cs)
 
 

@@ -31,6 +31,57 @@ def test_lorenzo_kernel_matches_plain_version(cuda):
                            ref.lorenzo_quant_tiles_ref(x, 0.75))
 
 
+LORENZO_TWO_EB = float(np.float32(0.75) * 2)
+# case -> shape; rank-4 shapes are tile batches [B, Z, Y, X], the others
+# (and tile 0 of each batch) whole volumes
+LORENZO_EDGES = {
+    "x_mod4_1": (2, 5, 9, 129), "x_mod4_2": (2, 5, 9, 130), "x_mod4_3": (2, 5, 9, 131),
+    "ragged_5x13x37": (3, 5, 13, 37),  # tiles start off 16 bytes
+    "x66_rows_off_16B": (4, 5, 13, 66), "x1": (3, 4, 7, 1), "z1": (3, 1, 7, 200),
+    "z1_y1_x1": (5, 1, 1, 1), "ties": (3, 6, 5, 128), "q_near_2^31": (2, 9, 40, 132),
+    "base_off_16B": (2, 4, 8, 512), "rank1": (4, 70), "rank2": (4, 17, 45),
+}
+
+
+def lorenzo_edge(case: str, rng) -> np.ndarray:
+    """Values for a Lorenzo edge case: exact .5 ties of x / 2eb, |q| near
+    2**31 (the int32 differences wrap), or normal noise."""
+    shape = LORENZO_EDGES[case]
+    if case == "ties":
+        x = (rng.integers(-4000, 4000, shape) + 0.5) * LORENZO_TWO_EB
+    elif case == "q_near_2^31":
+        x = rng.uniform(-1, 1, shape) * 0.999 * 2**31 * LORENZO_TWO_EB
+    else:
+        x = rng.normal(0, 50, shape)
+    return np.asarray(x, np.float32)
+
+
+def _on_card(x: np.ndarray, dev, offset: bool = False) -> torch.Tensor:
+    """x on the card; ``offset``: a contiguous view 4 bytes past an aligned
+    allocation, so no row is 16-byte aligned."""
+    if not offset:
+        return torch.from_numpy(x).to(dev)
+    t = torch.empty(x.size + 1, dtype=torch.float32, device=dev)[1:].view(x.shape)
+    return t.copy_(torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("case", list(LORENZO_EDGES))
+def test_lorenzo_kernels_on_edge_cases(cuda, case):
+    """Both Lorenzo kernels bit for bit against their plain versions: X % 4
+    of 1-3, tiles and rows off 16 bytes, X = 1, Z = 1, ranks 1-2, .5 ties,
+    |q| near 2**31; the tile kernel on the batch, the volume kernel on its
+    first tile."""
+    x = lorenzo_edge(case, np.random.default_rng(len(case)))
+    xt = _on_card(x, cuda, offset=case == "base_off_16B")
+    ops.reset_launches()
+    got = ops.lorenzo_quant_tiles_op(xt, 0.75)
+    assert ops.LAUNCHES["lorenzo_quant_tiles"] == 1
+    assert torch.equal(got, ref.lorenzo_quant_tiles_ref(xt, 0.75))
+    vol = xt[0]
+    assert torch.equal(ops.lorenzo_quant_op(vol, 0.75), ref.lorenzo_quant_ref(vol, 0.75))
+    assert ops.LAUNCHES["lorenzo_quant"] == 1
+
+
 @pytest.mark.parametrize("n_bins", [64, 5000, 100000])
 def test_symbol_hist_kernel_matches_plain_version(cuda, n_bins):
     s = torch.from_numpy(np.random.default_rng(n_bins).integers(-9, n_bins + 9, 70001)
@@ -153,9 +204,11 @@ def test_gwlz_on_the_card_matches_the_cpu(cuda):
     assert bool((diff <= 1e-5 * art.eb_abs + torch.from_numpy(np.spacing(np.abs(x)))).all())
 
 
-@pytest.mark.parametrize("shape", [(33, 17, 45), (64, 64, 64), (1, 9, 40), (70,), (9, 45), ()])
+@pytest.mark.parametrize("shape", [(33, 17, 45), (64, 64, 64), (1, 9, 40), (70,), (9, 45), (),
+                                   (70, 9, 128), (33, 5, 66), (65, 3, 37), (31, 2, 512)])
 def test_whole_volume_lorenzo_kernel_matches_plain_version(cuda, shape):
-    """Z across segment borders (32 planes a block), ragged windows, ranks
+    """Z across segment borders (32 planes a warp) at each vector width (X =
+    128 and 512: 4 cells a lane, 66: 2, 37 and 45: 1), ragged windows, ranks
     0-2, exact .5 ties of x / 2eb and |q| past 2^24."""
     rng = np.random.default_rng(len(shape))
     two = float(np.float32(0.75) * 2)

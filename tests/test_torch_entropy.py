@@ -300,3 +300,40 @@ def test_packed_lut_is_the_host_multi_lut(span):
     bad[0, 0] = 1 << B
     with pytest.raises(ValueError, match="packed layout"):
         huffman_decode.pack_lut(t["lut_count"], t["lut_bits"], bad)
+
+
+INT32_MIN = np.array([-(2**31), 5, -7], np.int32)
+
+
+def test_zlib_keeps_a_code_of_int32_min():
+    """A lane holding -2**31 is written as ``z4``: it round-trips in the port
+    and opens correctly in the reference."""
+    blob = P.encode_codes(_t(INT32_MIN), "zlib")
+    assert blob[4:6] == b"z4"
+    np.testing.assert_array_equal(P.decode_codes(blob, (3,), device="cpu").numpy(), INT32_MIN)
+    np.testing.assert_array_equal(np.asarray(R.decode_codes(blob, (3,))), INT32_MIN)
+
+
+def test_reference_z2_of_int32_min_decodes_to_zero():
+    """A record of the reference's behaviour (ROADMAP Queue 3): its abs test
+    wraps at -2**31, so it writes ``z2`` and both packages read the code as
+    0.  The port no longer writes these bytes."""
+    blob = R.encode_codes(INT32_MIN, "zlib")
+    assert blob[4:6] == b"z2"
+    want = [0, 5, -7]
+    np.testing.assert_array_equal(P.decode_codes(blob, (3,), device="cpu").numpy(), want)
+    np.testing.assert_array_equal(np.asarray(R.decode_codes(blob, (3,))), want)
+    assert P.encode_codes(_t(INT32_MIN), "zlib") != blob
+
+
+@pytest.mark.parametrize("lane", [
+    [0, 1, -1, 3], [2**15 - 1, -(2**15 - 1), 0], [-(2**15), 4], [2**15, -3],
+    [-(2**31) + 1, 2], [2**31 - 1, 0],
+], ids=["small", "int16_limits", "minus_2^15", "plus_2^15", "int32_min_plus_1", "int32_max"])
+def test_zlib_tag_and_bytes_equal_the_reference(lane):
+    """Without -2**31 the port's z2 test agrees with the reference's: the
+    same tag and the same bytes."""
+    a = np.array(lane, np.int32)
+    blob = P.encode_codes(_t(a), "zlib")
+    assert blob == R.encode_codes(a, "zlib")
+    assert blob[4:6] == (b"z2" if np.abs(a.astype(np.int64)).max() < 2**15 else b"z4")

@@ -156,3 +156,47 @@ def test_tiled_bytes_with_a_wide_lane_match_reference(tile):
     art, _ = compress_tiled(x, tile, abs_eb=0.05, device=CPU)
     rart, _ = RT.compress_tiled(jnp.asarray(x), tile, abs_eb=0.05)
     assert art.to_bytes() == rart.to_bytes()
+
+
+@pytest.mark.parametrize("budget", [2**12, 2**17, 2**20])
+def test_batched_histograms_stay_within_the_budget(monkeypatch, budget):
+    """512 lanes of 512 symbols, one spanning 2**16 (the batch span cap):
+    with the bins budget patched small, the lanes are counted in several
+    histogram calls, none of more than max(budget, its widest span) bins;
+    the encode still runs once and every blob is the one-lane blob."""
+    rng = np.random.default_rng(budget)
+    lanes = rng.integers(-40, 41, (512, 512)).astype(np.int32)
+    lanes[:64] = rng.integers(-3, 4, (64, 512))  # narrow lanes
+    lanes[300] = rng.integers(-7, 8, 512)
+    lanes[300, :2] = (-7, 2**16 - 8)  # span exactly 2**16: still batched
+    calls, encodes = [], []
+    real_hist, real_enc = ops.symbol_hist_lanes_op, ops.huffman_encode_op
+
+    def hist(codes, lo, *, n_bins):
+        calls.append((codes.shape[0], n_bins))
+        return real_hist(codes, lo, n_bins=n_bins)
+
+    def enc(lens, codes):
+        encodes.append(lens.shape)
+        return real_enc(lens, codes)
+
+    monkeypatch.setattr(P, "_HIST_BINS", budget)
+    monkeypatch.setattr(ops, "symbol_hist_lanes_op", hist)
+    monkeypatch.setattr(ops, "huffman_encode_op", enc)
+    got = P.encode_codes_lanes(torch.from_numpy(lanes), "huffman")
+    assert len(calls) > 1 and sum(rows for rows, _ in calls) == 512
+    assert all(rows * bins <= max(budget, bins) for rows, bins in calls), calls
+    assert len(encodes) == 1
+    monkeypatch.undo()
+    for blob, lane in zip(got, lanes):
+        assert blob == P.encode_codes(torch.from_numpy(lane), "huffman")
+
+
+@pytest.mark.parametrize("spans", [[5], [3, 9, 1, 70000, 2, 2], [4] * 10 + [600] * 3])
+def test_hist_batches_cover_every_lane_once(spans):
+    span = np.array(spans, np.int64)
+    budget = 64
+    batches = P._hist_batches(span, budget)
+    assert sorted(np.concatenate(batches).tolist()) == list(range(span.size))
+    for rows in batches:
+        assert rows.size * int(span[rows].max()) <= max(budget, int(span[rows].max()))
