@@ -59,24 +59,41 @@ Phases (any failure raises and the script exits non-zero):
               reconstruction and slice == full crop bit for bit; the 128^3
               corner's SZJX bytes equal on the card and the CPU;
               lorenzo_quant, huffman_encode and huffman_decode launched;
-7. gwlz_mono -- the paper's configuration: api.compress(predictor="lorenzo",
+7. interp  -- the default SZ path (interp, cubic) through the façade on the
+              temperature field: api.compress with no predictor (one stream
+              of the 513^3 padded volume's codes) -> api.save -> api.open ->
+              np.asarray(vol) and vol[the main ROI].  Checks: max error <=
+              float32(eb) exactly, decode == the compress-time
+              reconstruction and slice == full crop bit for bit, the coarse
+              grid's lorenzo_quant and the three Huffman kernels launched.
+              Prints the levels, padded shape, outliers, straggler rounds
+              and the device ms of one encode and one decode of the sweeps
+              (torch ops; CUDA events);
+8. interp_tiled -- compress_tiled(predictor="interp") over 64^3 tiles (512
+              lanes of 65^3 padded tiles), container round trip, full decode
+              and the region read; checks and prints as for interp, plus one
+              symbol_hist and one huffman_encode launch per compress;
+9. gwlz_mono -- the paper's configuration: api.compress(predictor="lorenzo",
               enhance=GWLZTrainConfig(epochs=5)) on the same field, the
               enhancers trained on 512 full 512x512 slices (51 steps an
               epoch; 5 epochs, cut from 300), then save, open, full decode
               and the ROI.  Checks as for gwlz;
-8. bigstream -- one SZJX Lorenzo field whose single Huffman stream is past
+10. gwlz_interp -- the same on the default predictor (interp): the paper's
+              GWLZ over its SZ3-class baseline (5 epochs, cut from 300);
+11. bigstream -- one SZJX Lorenzo field whose single Huffman stream is past
               2**31 bits (integer noise on [0, 2**16) at 512^3, abs_eb 0.5,
               ``huffman`` backend): api.compress -> save -> open -> full
               decode on the card, within eb (1 + 1e-6) and equal to x; the
               stream's bits are printed; and [0, 1) noise at 64^3, rel_eb
               1e-5, whose error past eb (float32 rounding of 2eb q, as in the
               reference) is printed, with the card's bytes equal to the CPU's;
-9. cli     -- ``python -m repro_torch.cli`` in subprocesses on
+12. cli     -- ``python -m repro_torch.cli`` in subprocesses on
               synthetic:temperature:64, tiled (tile 16) and monolithic,
               Lorenzo: compress -> info -> region -> decompress -> verify;
               the ROI equals the full crop, verify exits 0, and 1 on a copy
-              with one byte of one lane flipped;
-10. kernels -- each kernel again at its path's shapes: against its plain
+              with one byte of one lane flipped; then compress without
+              --predictor (interp) -> decompress -> verify;
+13. kernels -- each kernel again at its path's shapes: against its plain
               version, then timed (see ``kernel_ms`` and
               ``launch_events_ms``) beside the plain version, a library call
               where one exists, and the bound (the larger of bytes over
@@ -90,9 +107,9 @@ Phases (any failure raises and the script exits non-zero):
               unpacked in build/parent (``git archive``), its two Lorenzo
               kernels are built from there, checked equal to this tree's and
               timed beside them on the same inputs (``parent``);
-11. cpu    -- the 128^3 corner compressed on the card and on the CPU gives
-              identical GWTC bytes;
-12. golden -- tests/golden/gwtc_v1.bin and szjx_lorenzo.bin decode on the
+14. cpu    -- the 128^3 corner compressed on the card and on the CPU gives
+              identical bytes: GWTC Lorenzo, GWTC interp and SZJX interp;
+15. golden -- tests/golden/gwtc_v1.bin and szjx_lorenzo.bin decode on the
               card bit for bit.
 
 Each phase prints a JSON line.  Then come the ``kernels`` line, the card's
@@ -142,6 +159,11 @@ KERNELS = {  # counter name -> (source, TPU kernel it replaces, __global__ name 
 GWLZ_KERNELS = ("group_hist", "enhancer_fused")  # counted on the gwlz path
 LANE_KERNELS = ("symbol_hist", "huffman_encode")  # once per tiled compress, all lanes
 SZJX_KERNELS = ("lorenzo_quant", "huffman_encode", "huffman_decode")  # needed on szjx
+INTERP_ORDER = "cubic"  # the default predictor's order (SZCompressor, api.compress)
+INTERP_KERNELS = {  # needed on the interp paths: the coarse grid's Lorenzo kernel, Huffman
+    "interp": ("lorenzo_quant", "symbol_hist", "huffman_encode", "huffman_decode"),
+    "interp_tiled": ("lorenzo_quant_tiles", "symbol_hist", "huffman_encode", "huffman_decode"),
+}
 # the path whose launches each kernel's row reports
 LAUNCH_PATH = {**{k: "main" for k in KERNELS}, "lorenzo_quant": "szjx",
                **{k: "gwlz" for k in GWLZ_KERNELS}}
@@ -772,6 +794,144 @@ def szjx_path(x_np, tmp: Path):
     return art, launches
 
 
+def interp_sweeps(xp, eb: float, levels: int) -> tuple:
+    """The interp predictor's sweeps (torch ops, no kernel of their own) on
+    a batch of padded volumes [B, *pshape]: one encode with straggler
+    promotion (its rounds and outliers, and the decoder's reconstruction),
+    then the device time of one encode and of one decode (CUDA events, 3
+    calls each).  Returns (reconstruction, stats)."""
+    from repro_torch.sz import predictor as P
+
+    codes, omask, ovals, recon, rounds = P.interp_encode_batch(xp, eb, levels, INTERP_ORDER)
+    stats = {"batch": list(xp.shape), "levels": levels, "straggler_rounds": rounds,
+             "outliers": int(omask.sum()),
+             "encode_ms": events_ms(lambda: P._interp_encode_padded(xp, eb, levels,
+                                                                    INTERP_ORDER), 3),
+             "decode_ms": events_ms(lambda: P._interp_decode_padded(
+                 codes, omask, ovals, eb, levels, INTERP_ORDER), 3)}
+    return recon, stats
+
+
+def interp_path(x_np, tmp: Path):
+    """The default SZ path (interp, cubic: one stream of the padded volume's
+    codes) through the façade: compress, save, open (mmap), full decode and
+    the main ROI."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.sz import predictor as P
+
+    path = tmp / "field_interp.szjx"
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vol = api.compress(x_np, eb=REL_EB, backend=BACKEND)
+    n = api.save(path, vol)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    del vol
+    with api.open(path) as back:
+        full = np.asarray(back)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        region = back[roi_key()]
+        t3 = time.perf_counter()
+        art = back.artifact
+    launches = dict(ops.LAUNCHES)
+
+    x = torch.from_numpy(x_np).cuda()
+    out = torch.from_numpy(full.copy()).cuda()
+    check(full.shape == SHAPE and bool(torch.isfinite(out).all()), "interp decode shape")
+    check(art.predictor == "interp" and art.order == INTERP_ORDER, "not the default predictor")
+    eb32 = float(np.float32(art.eb_abs))
+    err = float((x.double() - out.double()).abs().max())
+    check(err <= eb32, f"interp error {err} above eb {eb32}")
+    # the compress-time reconstruction: the encode again, on the same padded
+    # volume (compress is deterministic), with its straggler rounds
+    xp = P.pad_edge(x, tuple(art.padded_shape))[None]
+    recon, sweeps = interp_sweeps(xp, art.eb_abs, art.levels)
+    del xp
+    check(torch.equal(out, recon[0][tuple(slice(0, d) for d in SHAPE)]),
+          "interp decode differs from the compress-time reconstruction")
+    del recon
+    check(sweeps["outliers"] == art.outlier_idx.size, "interp outliers differ between runs")
+    check(np.array_equal(region, full[roi_key()]), "interp slice differs from the full crop")
+    check(all(launches[k] > 0 for k in INTERP_KERNELS["interp"]),
+          f"an interp kernel never launched: {launches}")
+    emit({"phase": "interp", "shape": list(SHAPE), "rel_eb": REL_EB, "backend": BACKEND,
+          "order": art.order, "levels": art.levels, "padded_shape": list(art.padded_shape),
+          "eb_abs": art.eb_abs, "compress_s": t1 - t0, "decompress_s": t2 - t1,
+          "region_ms": (t3 - t2) * 1e3, "roi": [list(r) for r in ROI], "ratio": x_np.nbytes / n,
+          "container_bytes": n, "max_abs_err": err, "max_err_over_eb": err / eb32,
+          "outliers": int(art.outlier_idx.size), "symbols": int(np.prod(art.padded_shape)),
+          "decode_equals_recon": True, "roi_equals_crop": True, "sweeps": sweeps,
+          "launches": launches})
+    return launches
+
+
+def interp_tiled_path(x_np):
+    """Tiled interp: compress_tiled(predictor="interp") over 64^3 tiles (65^3
+    padded, one lane each), container round trip, full decode and the
+    region read."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.sz import TiledCompressed, compress_tiled, decompress_region
+    from repro_torch.sz import decompress_tiled, tiled
+    from repro_torch.sz import predictor as P
+
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    art, recon = compress_tiled(x_np, TILE, rel_eb=REL_EB, backend=BACKEND, predictor="interp")
+    blob = art.to_bytes()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    compress_launches = dict(ops.LAUNCHES)
+    back = TiledCompressed.from_bytes(blob)
+    out = decompress_tiled(back)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    region = decompress_region(back, ROI)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+
+    x = torch.from_numpy(x_np).to(out.device)
+    check(tuple(out.shape) == SHAPE and bool(torch.isfinite(out).all()), "interp_tiled shape")
+    eb32 = float(np.float32(art.eb_abs))
+    err = float((x.double() - out.double()).abs().max())
+    check(err <= eb32, f"interp_tiled error {err} above eb {eb32}")
+    check(torch.equal(out, recon), "interp_tiled decode differs from the compress-time "
+          "reconstruction")
+    crop = out[tuple(slice(a, b) for a, b in ROI)]
+    check(torch.equal(region, crop), "interp_tiled region differs from the full crop")
+    del recon, out, region, crop
+    check(all(launches[k] > 0 for k in INTERP_KERNELS["interp_tiled"]),
+          f"an interp_tiled kernel never launched: {launches}")
+    check(all(compress_launches[k] == 1 for k in LANE_KERNELS),
+          f"the tiled interp compress did not launch each lane kernel once: {compress_launches}")
+    outliers = sum(P._INTERP_LANE_HDR.unpack_from(b, 0)[0] for b in art.tile_blobs)
+    tiles = tiled.split_tiles(tiled.pad_to_tiles(x, TILE), TILE)
+    xp = P.pad_edge(tiles, P._padded_shape(TILE, art.levels), first_axis=1)
+    del tiles
+    _, sweeps = interp_sweeps(xp, art.eb_abs, art.levels)
+    del xp
+    check(sweeps["outliers"] == outliers, "interp_tiled outliers differ between runs")
+    emit({"phase": "interp_tiled", "shape": list(SHAPE), "tile": list(TILE),
+          "padded_tile": list(P._padded_shape(TILE, art.levels)), "rel_eb": REL_EB,
+          "backend": BACKEND, "order": art.order, "levels": art.levels, "eb_abs": art.eb_abs,
+          "compress_s": t1 - t0, "decompress_s": t2 - t1, "region_ms": (t3 - t2) * 1e3,
+          "roi": [list(r) for r in ROI], "ratio": x_np.nbytes / len(blob),
+          "container_bytes": len(blob), "max_abs_err": err, "max_err_over_eb": err / eb32,
+          "outliers": outliers, "decode_equals_recon": True, "roi_equals_crop": True,
+          "sweeps": sweeps, "compress_launches": compress_launches, "launches": launches})
+    return launches
+
+
 def bigstream_path(tmp: Path):
     """One SZJX Lorenzo field whose single Huffman stream is past 2**31 bits:
     integer noise, uniform on [0, 2**16), at 512^3 with abs_eb 0.5 (~17.7
@@ -834,9 +994,9 @@ def bigstream_path(tmp: Path):
     return launches
 
 
-def gwlz_mono_path(x_np, tmp: Path):
-    """The paper's configuration: monolithic SZ, enhancers trained on the
-    full 512x512 slices, through the façade."""
+def gwlz_mono_path(x_np, tmp: Path, phase: str = "gwlz_mono", predictor: str = "lorenzo"):
+    """The paper's configuration: monolithic SZ (``predictor``), enhancers
+    trained on the full 512x512 slices, through the façade."""
     import numpy as np
     import torch
 
@@ -846,11 +1006,12 @@ def gwlz_mono_path(x_np, tmp: Path):
     from repro_torch.kernels import ops
 
     cfg = GWLZTrainConfig(epochs=MONO_EPOCHS)
-    path = tmp / "field_gwlz.szjx"
+    path = tmp / f"field_{phase}.szjx"
     ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    vol = api.compress(x_np, eb=REL_EB, predictor="lorenzo", backend=BACKEND, enhance=cfg)
+    vol = api.compress(x_np, eb=REL_EB, predictor=predictor, backend=BACKEND, enhance=cfg)
     api.save(path, vol)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -866,7 +1027,8 @@ def gwlz_mono_path(x_np, tmp: Path):
     stats = vol.train_stats
     x = torch.from_numpy(x_np).cuda()
     out = torch.from_numpy(full.copy()).cuda()
-    check(full.shape == SHAPE and bool(torch.isfinite(out).all()), "gwlz_mono decode shape")
+    check(full.shape == SHAPE and bool(torch.isfinite(out).all()), f"{phase} decode shape")
+    check(art.predictor == predictor, f"{phase}: the container's predictor is {art.predictor}")
     psnr = float(metrics.psnr(x, out))
     check(psnr == stats.psnr_gwlz, f"decode PSNR {psnr} != compress-time {stats.psnr_gwlz}")
     check(np.array_equal(region, full[roi_key()]), "enhanced slice differs from the full crop")
@@ -879,13 +1041,14 @@ def gwlz_mono_path(x_np, tmp: Path):
     model = deserialize_model(art.extras["gwlz"])
     sec = stats.seconds
     steps = SHAPE[0] // cfg.batch_size * cfg.epochs
-    emit({"phase": "gwlz_mono", "field": "temperature", "shape": list(SHAPE),
-          "rel_eb": REL_EB, "n_groups": cfg.n_groups, "channels": cfg.channels,
-          "batch_size": cfg.batch_size, "epochs": cfg.epochs, "steps": steps,
+    emit({"phase": phase, "predictor": predictor, "field": "temperature",
+          "shape": list(SHAPE), "rel_eb": REL_EB, "n_groups": cfg.n_groups,
+          "channels": cfg.channels, "batch_size": cfg.batch_size, "epochs": cfg.epochs, "steps": steps,
           "compress_s": t1 - t0, "seconds": sec,
           "train_ms_per_step": 1e3 * sec["train"] / steps, "decompress_s": t2 - t1,
           "region_ms": (t3 - t2) * 1e3, "psnr_sz": stats.psnr_sz,
-          "psnr_gwlz": stats.psnr_gwlz, "psnr_decode": psnr, "overhead": stats.overhead,
+          "psnr_gwlz": stats.psnr_gwlz, "psnr_gain": stats.psnr_gwlz - stats.psnr_sz,
+          "psnr_decode": psnr, "overhead": stats.overhead,
           "ratio_sz": stats.cr_sz, "ratio_gwlz": stats.cr_gwlz,
           "max_err_sz": stats.max_err_sz, "max_err_gwlz": stats.max_err_gwlz,
           "trained_groups": int((np.asarray(stats.loss_history[-1]) > 0).sum()),
@@ -925,6 +1088,13 @@ def cli_path(tmp: Path) -> None:
         full, part = np.load(tmp / f"full_{mode}.npy"), np.load(tmp / f"roi_{mode}.npy")
         check(np.array_equal(part, full[8:40, 0:16, 20:52]), f"cli {mode}: ROI != full crop")
         sizes[mode] = os.path.getsize(f)
+    # the default predictor (interp), monolithic
+    f = str(tmp / "cli_interp.gw")
+    run("compress", "synthetic:temperature:64", f, "--eb", "1e-3")
+    run("decompress", f, str(tmp / "full_interp.npy"))
+    run("verify", f)
+    check(np.load(tmp / "full_interp.npy").shape == (64, 64, 64), "cli interp: decode shape")
+    sizes["interp"] = os.path.getsize(f)
     from repro_torch.sz import TiledCompressed, tiled
 
     blob = bytearray((tmp / "cli_tiled.gw").read_bytes())
@@ -1310,20 +1480,30 @@ def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
 
 
 def cpu_vs_card(x_np) -> None:
+    """The 128^3 corner compressed on the card and on the CPU: GWTC Lorenzo,
+    GWTC interp and SZJX interp bytes must be identical."""
     import numpy as np
 
-    from repro_torch.sz import compress_tiled
+    from repro_torch.sz import SZCompressor
 
     corner = np.ascontiguousarray(x_np[:128, :128, :128])
-    t0 = time.perf_counter()
-    card, _ = compress_tiled(corner, TILE, rel_eb=REL_EB, backend=BACKEND)
-    t1 = time.perf_counter()
-    cpu, _ = compress_tiled(corner, TILE, rel_eb=REL_EB, backend=BACKEND, device="cpu")
-    t2 = time.perf_counter()
-    same = card.to_bytes() == cpu.to_bytes()
-    check(same, "card and CPU GWTC bytes differ on the 128^3 corner")
-    emit({"phase": "cpu", "shape": [128, 128, 128], "bytes_identical": same,
-          "card_s": t1 - t0, "cpu_s": t2 - t1})
+    cases = {"gwtc_lorenzo": lambda sz, dev: sz.compress_tiled(
+                 corner, TILE, rel_eb=REL_EB, predictor="lorenzo", device=dev),
+             "gwtc_interp": lambda sz, dev: sz.compress_tiled(
+                 corner, TILE, rel_eb=REL_EB, predictor="interp", device=dev),
+             "szjx_interp": lambda sz, dev: sz.compress(corner, rel_eb=REL_EB, device=dev)}
+    sz = SZCompressor(backend=BACKEND)
+    out = {}
+    for name, run in cases.items():
+        t0 = time.perf_counter()
+        card = run(sz, None)[0].to_bytes()
+        t1 = time.perf_counter()
+        cpu = run(sz, "cpu")[0].to_bytes()
+        t2 = time.perf_counter()
+        check(card == cpu, f"card and CPU {name} bytes differ on the 128^3 corner")
+        out[name] = {"bytes": len(card), "bytes_identical": True, "card_s": t1 - t0,
+                     "cpu_s": t2 - t1}
+    emit({"phase": "cpu", "shape": [128, 128, 128], "cases": out})
 
 
 def golden() -> None:
@@ -1383,16 +1563,22 @@ def main() -> int:
     del vx
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sz_art, sz_launches = szjx_path(x_np, Path(tmp))
+        interp_launches = interp_path(x_np, Path(tmp))
+        interp_tiled_launches = interp_tiled_path(x_np)
         mono = gwlz_mono_path(x_np, Path(tmp))
+        gw_interp = gwlz_mono_path(x_np, Path(tmp), "gwlz_interp", "interp")
         big_launches = bigstream_path(Path(tmp))
         cli_path(Path(tmp))
     path_launches = {"main": launches, "gwlz": gw["gwlz"][2], "szjx": sz_launches,
-                     "gwlz_mono": mono[2], "bigstream": big_launches}
-    check(all(path_launches[p]["huffman_decode"] > 0 for p in ("main", "gwlz", "szjx",
-                                                                "gwlz_mono", "bigstream")),
+                     "interp": interp_launches, "interp_tiled": interp_tiled_launches,
+                     "gwlz_mono": mono[2], "gwlz_interp": gw_interp[2],
+                     "bigstream": big_launches}
+    check(all(ls["huffman_decode"] > 0 for ls in path_launches.values()),
           "huffman_decode missed a path")
     check(all(ls["enhancer_fused"] > 0 for ls in (gw["gwlz"][2], gw["gwlz_all_groups"][2],
-                                                 mono[2])), "enhancer_fused missed a path")
+                                                 mono[2], gw_interp[2])),
+          "enhancer_fused missed a path")
+    del gw_interp
     with torch.no_grad():  # the model's parameters must not build autograd graphs here
         rows = kernel_rows(par, x_np, art, path_launches, gw, sz_art, mono)
     cpu_vs_card(x_np)

@@ -6,7 +6,7 @@ numpy-like handle:
 
     from repro_torch import api
 
-    vol = api.compress(x, eb=1e-3, predictor="lorenzo", tiled=True)
+    vol = api.compress(x, eb=1e-3, tiled=True)
     api.save("field.gwlz", vol)
 
     vol = api.open("field.gwlz")          # sniffs the magic, picks the decoder
@@ -20,7 +20,9 @@ Every entry point takes ``device=None``, meaning the CUDA device (which
 must exist); pass ``device="cpu"`` to run the plain PyTorch versions.  The
 handle decodes on its device and returns numpy arrays.
 
-Not ported yet: ``compress_stream`` (ROADMAP.md Queue 1 item 7) and the
+The default predictor is interp (SZ3-style interpolation), as in the
+reference; ``predictor="lorenzo"`` selects the Lorenzo predictor.  Not
+ported yet: ``compress_stream`` (ROADMAP.md Queue 1 item 7) and the
 multi-field ``Dataset`` / ``GWDS`` envelope (item 9); they raise
 :class:`NotImplementedError`.
 """
@@ -419,8 +421,8 @@ def compress(x, *, eb: float | None = None, abs_eb: float | None = None,
     ``abs_eb`` is absolute: pass exactly one.  ``tiled=True`` selects the
     random-access ``GWTC`` container over the tile grid ``tile``;
     ``predictor``/``order``/``backend`` configure the transform and entropy
-    stages on either path (the default predictor, interp, is not ported
-    yet: pass ``predictor="lorenzo"``).  ``enhance`` trains group-wise GWLZ
+    stages on either path (interp, cubic by default; or ``"lorenzo"``).
+    ``enhance`` trains group-wise GWLZ
     enhancers and attaches them: ``True`` uses the default
     :class:`GWLZTrainConfig`, or pass a config; the handle's ``stats`` then
     carries the paper's metrics."""

@@ -15,16 +15,19 @@
 as the reference CLI makes it).  ``verify`` checks a container end to end
 (envelope structure, metadata checksum and every lane CRC) and exits
 nonzero on the first corruption.  Every subcommand works on whatever
-envelope ``api.open`` sniffs (``SZJX``/``GWTC``).  Files are byte-identical
-to the reference CLI's for the Lorenzo predictor.
+envelope ``api.open`` sniffs (``SZJX``/``GWTC``).  ``--predictor`` is
+interp (the default, as in the reference) or lorenzo.  Files are
+byte-identical to the reference CLI's for the Lorenzo predictor; interp
+files open in either package (``sz/predictor.py`` states the port's float32
+arithmetic).
 
 ``--device`` (before the subcommand) picks where the work runs: ``cuda``
 (the default, the port's kernels; no card is an error) or ``cpu`` (their
 plain PyTorch versions).
 
-Not ported yet: the interp predictor (the default of ``--predictor``,
-ROADMAP.md Queue 1 item 6), ``--stream``/``--resume`` (item 7), GWDS
-datasets and ``--field`` (item 9), and the ``serve``/``lint`` commands.
+Not ported yet: ``--stream``/``--resume`` (ROADMAP.md Queue 1 item 7),
+GWDS datasets and ``--field`` (item 9), and the ``serve``/``lint``
+commands.
 
 Exit codes are uniform across subcommands: **0** success, **1** integrity
 failure (corrupt container / failed CRC), **2** usage error (bad
@@ -120,13 +123,10 @@ def cmd_compress(args) -> int:
         enhance = GWLZTrainConfig(n_groups=args.groups, epochs=args.epochs,
                                   min_group_pixels=args.min_group_pixels)
     x = _load_volume(args.input)
-    try:
-        vol = api.compress(x, eb=args.eb, abs_eb=args.abs_eb, tiled=args.tiled,
-                           tile=(args.tile,) * x.ndim, enhance=enhance,
-                           predictor=args.predictor, order=args.order,
-                           backend=args.backend, device=device)
-    except NotImplementedError as e:
-        raise _fail("compress", e) from None
+    vol = api.compress(x, eb=args.eb, abs_eb=args.abs_eb, tiled=args.tiled,
+                       tile=(args.tile,) * x.ndim, enhance=enhance,
+                       predictor=args.predictor, order=args.order,
+                       backend=args.backend, device=device)
     n = api.save(args.output, vol)
     print(f"wrote {args.output}: {n} bytes ({vol!r}, cr {x.nbytes / n:.1f}x)")
     if vol.train_stats is not None:
@@ -143,8 +143,6 @@ def cmd_decompress(args) -> int:
     except api.IntegrityError as e:
         print(f"CORRUPT: {e}", file=sys.stderr)
         return EXIT_INTEGRITY
-    except NotImplementedError as e:
-        raise _fail("decompress", e) from None
     np.save(args.output, arr)
     print(f"wrote {args.output}: shape {arr.shape} dtype {arr.dtype} "
           f"(eb_abs {vol.eb_abs:.4g})")
@@ -177,8 +175,6 @@ def cmd_region(args) -> int:
     except api.IntegrityError as e:
         print(f"CORRUPT: {e}", file=sys.stderr)
         return EXIT_INTEGRITY
-    except NotImplementedError as e:
-        raise _fail("region", e) from None
     except (IndexError, ValueError) as e:
         raise _fail("region", f"--roi {args.roi!r} invalid for shape {vol.shape}: "
                               f"{e}") from None

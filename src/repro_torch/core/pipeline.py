@@ -5,8 +5,8 @@ blob attached to the container's extras (fp32, §4.1), and enhanced full
 and region decode.
 
 As in the reference, :class:`GWLZ` reaches both containers through its
-``SZCompressor``, whose default predictor is interp; that predictor is not
-ported yet, so pass ``sz=SZCompressor("lorenzo")``.
+``SZCompressor``, whose default predictor is interp (the paper's SZ3-class
+baseline); ``sz=SZCompressor("lorenzo")`` selects the Lorenzo predictor.
 """
 from __future__ import annotations
 
@@ -308,9 +308,8 @@ class GWLZ:
 
 
 def quick_compress(x, rel_eb=1e-3, n_groups=20, epochs=60, *, device=None, **kw):
-    """Convenience entry point (reduced epochs), on the reference's default
-    ``SZCompressor()``, whose interp predictor is not ported yet: until it
-    is, this raises ``NotImplementedError``; use
-    ``GWLZ(sz=SZCompressor("lorenzo"), ...).compress``."""
+    """Convenience entry point (reduced epochs) on the default
+    ``SZCompressor()`` (interp, cubic), as in the reference; returns
+    (SZCompressed, GWLZStats)."""
     cfg = GWLZTrainConfig(n_groups=n_groups, epochs=epochs, **kw)
     return GWLZ(train_cfg=cfg).compress(x, rel_eb=rel_eb, device=device)

@@ -1,6 +1,7 @@
 """Error-bounded lossy compression substrate: the monolithic SZJX compressor
 and the tiled GWTC engine."""
 from repro_torch.sz.artifact import from_bytes, register_container, sniff_magic
+from repro_torch.sz.predictor import interp_decode, interp_encode
 from repro_torch.sz.szjax import SZCompressed, SZCompressor, compress, decompress
 from repro_torch.sz.tiled import (
     TiledCompressed,
@@ -13,6 +14,8 @@ __all__ = [
     "from_bytes",
     "register_container",
     "sniff_magic",
+    "interp_encode",
+    "interp_decode",
     "SZCompressed",
     "SZCompressor",
     "compress",

@@ -1,8 +1,16 @@
-"""Prequantization onto the 2*eb grid (port of ``repro/sz/quantizer.py:27-59``).
+"""Error-controlled quantization, port of ``repro/sz/quantizer.py``.
 
-Every value is snapped to ``q = rint(x / 2eb)``; the Lorenzo transform after
-it is lossless integer arithmetic, so ``|x - 2eb*q| <= eb`` is the whole
-error budget.  Bit parity with the reference rests on three facts:
+Two schemes, both holding ``|x - x'| <= eb`` pointwise:
+
+1. *Prequantization* (the Lorenzo path): every value is snapped to
+   ``q = rint(x / 2eb)``; the Lorenzo transform after it is lossless integer
+   arithmetic, so ``|x - 2eb*q| <= eb`` is the whole error budget.
+2. *Residual quantization* (the interp path): ``x - pred`` is quantized
+   against a prediction from values already reconstructed; a code of
+   magnitude ``OUTLIER_RADIUS`` or more, or a reconstruction that float32
+   rounding puts past eb, makes the value an outlier stored verbatim.
+
+Bit parity with the reference's prequantization rests on three facts:
 
 * ``2eb`` is the float32 value of ``eb`` doubled (exact in float32),
 * the division is IEEE round-to-nearest (the divisor is a 0-dim tensor on
@@ -15,6 +23,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ref import two_eb_tensor
+
+# SZ-style quantization radius: codes live in (-R, R); |code| >= R means
+# "unpredictable" -> store the exact value.
+OUTLIER_RADIUS = 1 << 15
 
 
 def resolve_eb(x: torch.Tensor, rel_eb: float | None, abs_eb: float | None) -> float:
@@ -47,3 +59,25 @@ def prequantize(x: torch.Tensor, eb: float) -> torch.Tensor:
 def dequantize_pre(q: torch.Tensor, eb: float) -> torch.Tensor:
     """Inverse of :func:`prequantize`: float32(q) * 2eb."""
     return q.to(torch.float32) * two_eb_tensor(eb, q.device)
+
+
+def quantize_residual(x: torch.Tensor, pred: torch.Tensor,
+                      eb: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quantize ``x - pred`` with bound ``eb``.
+
+    Returns ``(code, recon, is_outlier)``: int32 codes in (-R, R), 0 at
+    outliers; the decoder-visible reconstruction ``pred + code * 2eb``,
+    exactly ``x`` at outliers; the outlier mask.  Every step is one float32
+    operation (no fused multiply-add), so the CPU and the card agree bit for
+    bit; the bound is the float32 value of ``eb``."""
+    two_eb = two_eb_tensor(eb, x.device)
+    code = torch.round(torch.div(x - pred, two_eb))
+    is_outlier = code.abs() >= OUTLIER_RADIUS
+    code = code.masked_fill(is_outlier, 0.0).to(torch.int32)
+    recon = pred + code.to(torch.float32) * two_eb
+    # float32 rounding can put recon just past the bound: store those exactly
+    bad = (recon - x).abs() > float(np.float32(eb))
+    is_outlier |= bad
+    code = code.masked_fill(bad, 0)
+    recon = torch.where(is_outlier, x, recon)
+    return code, recon, is_outlier

@@ -3,13 +3,15 @@
 
 ``compress`` returns both the serializable artifact and the decompressor-
 visible reconstruction (GWLZ trains its enhancers on it without a second
-decompress pass).  With the Lorenzo predictor the whole volume is one
-prediction domain and one entropy stream: prequantization and the 3-axis
-Lorenzo difference run on the ``lorenzo_quant`` kernel, the stream on the
-Huffman kernels.  Containers are byte-identical to the reference's.
-
-The interp predictor (the reference's default) is not ported yet: asking
-for it raises :class:`NotImplementedError` (ROADMAP.md Queue 1 item 6).
+decompress pass).  The whole volume is one prediction domain and one
+entropy stream, on the Huffman kernels.  With the Lorenzo predictor,
+prequantization and the 3-axis Lorenzo difference run on the
+``lorenzo_quant`` kernel and containers are byte-identical to the
+reference's.  With the interp predictor (the default, as in the reference)
+the volume is edge-padded and coded level by level (``sz/predictor.py``,
+whose docstring fixes the port's float32 arithmetic); the container's
+header equals the reference's, and its codes and outliers differ only where
+the two packages' float32 predictions do.
 """
 from __future__ import annotations
 
@@ -34,15 +36,6 @@ _PRED = P.PRED_IDS
 _PRED_INV = P.PRED_NAMES
 _ORD = P.ORDER_IDS
 _ORD_INV = P.ORDER_NAMES
-_PORTED_PREDICTORS = ("lorenzo",)
-
-
-def require_ported(predictor: str) -> None:
-    """Raise for a predictor the reference has and the port has not yet."""
-    if predictor not in _PORTED_PREDICTORS:
-        raise NotImplementedError(
-            f"the {predictor!r} predictor is not ported yet (ROADMAP.md Queue 1 item 6); "
-            f"ported: {list(_PORTED_PREDICTORS)}")
 
 
 @dataclass
@@ -164,10 +157,10 @@ A.register_container(_MAGIC, SZCompressed)
 class SZCompressor:
     """Configurable error-bounded compressor (predictor x order x backend).
 
-    The signature and defaults are the reference's (``predictor="interp"``);
-    only ``"lorenzo"`` is ported, and the others raise when used.  Entry
-    points take ``device=None``, meaning the CUDA device (which must exist);
-    pass ``device="cpu"`` to run the plain versions."""
+    The signature and defaults are the reference's (``predictor="interp"``,
+    ``order="cubic"``).  Entry points take ``device=None``, meaning the CUDA
+    device (which must exist); pass ``device="cpu"`` to run the plain
+    versions."""
 
     def __init__(self, predictor: str = "interp", order: str = "cubic",
                  backend: str = "huffman+zlib", max_levels: int = 5):
@@ -183,24 +176,40 @@ class SZCompressor:
                  device=None) -> tuple[SZCompressed, torch.Tensor]:
         """Returns (artifact, reconstruction on ``device``).  Exactly one of
         rel_eb / abs_eb."""
-        require_ported(self.predictor)
         device = resolve_device(device)
         x = torch.as_tensor(x, dtype=torch.float32).to(device)
         eb = resolve_eb(x, rel_eb, abs_eb)
-        codes = P.lorenzo_encode(x, eb)
-        recon = P.lorenzo_decode(codes, eb)
+        if self.predictor == "lorenzo":
+            codes = P.lorenzo_encode(x, eb)
+            recon = P.lorenzo_decode(codes, eb)
+            artifact = SZCompressed(
+                shape=tuple(x.shape), padded_shape=tuple(x.shape), levels=0, eb_abs=eb,
+                predictor="lorenzo", order=self.order,
+                code_blob=encode_codes(codes, self.backend),
+                outlier_idx=np.zeros(0, np.int64), outlier_val=np.zeros(0, np.float32))
+            return artifact, recon
+        codes, omask, ovals, recon, (shape, pshape, levels) = P.interp_encode(
+            x, eb, order=self.order, max_levels=self.max_levels)
+        oidx = torch.nonzero(omask.reshape(-1)).reshape(-1)
+        oval = ovals.reshape(-1)[oidx]
         artifact = SZCompressed(
-            shape=tuple(x.shape), padded_shape=tuple(x.shape), levels=0, eb_abs=eb,
-            predictor="lorenzo", order=self.order,
-            code_blob=encode_codes(codes, self.backend),
-            outlier_idx=np.zeros(0, np.int64), outlier_val=np.zeros(0, np.float32))
-        return artifact, recon
+            shape=shape, padded_shape=pshape, levels=levels, eb_abs=eb, predictor="interp",
+            order=self.order, code_blob=encode_codes(codes, self.backend),
+            outlier_idx=oidx.cpu().numpy(), outlier_val=oval.cpu().numpy())
+        return artifact, recon[tuple(slice(0, d) for d in shape)].contiguous()
 
     def decompress(self, artifact: SZCompressed, *, device=None) -> torch.Tensor:
-        require_ported(artifact.predictor)
         device = resolve_device(device)
-        codes = decode_codes(artifact.code_blob, tuple(artifact.shape), device=device)
-        return P.lorenzo_decode(codes, artifact.eb_abs)
+        if artifact.predictor == "lorenzo":
+            codes = decode_codes(artifact.code_blob, tuple(artifact.shape), device=device)
+            return P.lorenzo_decode(codes, artifact.eb_abs)
+        pshape = tuple(artifact.padded_shape)
+        codes = decode_codes(artifact.code_blob, pshape, device=device)
+        omask, ovals = P.scatter_outliers(artifact.outlier_idx, artifact.outlier_val, pshape,
+                                          device)
+        return P.interp_decode(codes, omask, ovals, artifact.eb_abs,
+                               (tuple(artifact.shape), pshape, artifact.levels),
+                               order=artifact.order)
 
     def compress_tiled(self, x, tile=(64, 64, 64), *, rel_eb: float | None = None,
                        abs_eb: float | None = None, predictor: str | None = None,
@@ -210,10 +219,10 @@ class SZCompressor:
         ``self.predictor`` for this call."""
         from repro_torch.sz import tiled
 
-        pred = self.predictor if predictor is None else predictor
-        require_ported(pred)
         return tiled.compress_tiled(x, tile, rel_eb=rel_eb, abs_eb=abs_eb,
-                                    backend=self.backend, predictor=pred, order=self.order,
+                                    backend=self.backend,
+                                    predictor=self.predictor if predictor is None else predictor,
+                                    order=self.order,
                                     max_levels=self.max_levels, device=device)
 
     def decompress_tiled(self, artifact, *, device=None) -> torch.Tensor:

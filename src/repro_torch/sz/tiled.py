@@ -5,14 +5,18 @@ The volume is edge-padded to a whole number of tiles and split; every tile
 is an independent prediction domain and one independent entropy lane, and
 the container's footer index locates each lane, so
 :func:`decompress_region` entropy-decodes only the tiles an ROI touches.
-Region decode is bit-identical to the full decode's crop: the Lorenzo decode
-(an int32 cumsum and one multiply per element) never mixes tiles.
+Region decode is bit-identical to the full decode's crop: neither the
+Lorenzo decode (an int32 cumsum and one multiply per element) nor the interp
+decode (elementwise float32 ops, see ``sz/predictor.py``) mixes tiles or
+depends on the batch size.
 
-Device work (prequantize + Lorenzo, histogram, pack, decode, cumsum) runs on
-the tensors' device; lane framing, zlib and CRCs on the host.  Containers
-are byte-identical to the reference's (GWTC v3 written; v1, v2 and v3
-read).  The XLA-oriented ``dispatch_bucketed`` has no counterpart: eager
-PyTorch compiles nothing per batch size, so decode is one batched call.
+Device work (prediction and quantization, histogram, pack, decode) runs on
+the tensors' device; lane framing, zlib and CRCs on the host.  Lorenzo
+containers are byte-identical to the reference's; interp containers share
+its layout and open in either package, their codes differing where the two
+packages' float32 predictions do (GWTC v3 written; v1, v2 and v3 read).
+The XLA-oriented ``dispatch_bucketed`` has no counterpart: eager PyTorch
+compiles nothing per batch size, so decode is one batched call.
 """
 from __future__ import annotations
 
@@ -27,7 +31,14 @@ import torch
 from repro_torch.errors import CorruptContainerError, CorruptLaneError
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.sz import artifact as A
-from repro_torch.sz.predictor import ORDER_IDS, ORDER_NAMES, PRED_IDS, PRED_NAMES, get_predictor
+from repro_torch.sz.predictor import (
+    ORDER_IDS,
+    ORDER_NAMES,
+    PRED_IDS,
+    PRED_NAMES,
+    get_predictor,
+    pad_edge,
+)
 from repro_torch.sz.quantizer import resolve_eb
 
 _MAGIC = A.GWTC_MAGIC
@@ -145,13 +156,8 @@ def tile_grid(shape: tuple[int, ...], tile: tuple[int, ...]) -> tuple[int, ...]:
 
 
 def pad_to_tiles(x: torch.Tensor, tile: tuple[int, ...]) -> torch.Tensor:
-    """Edge-mode padding to whole tiles, as an index-clamp gather per axis
-    (any rank)."""
-    for ax, (d, g, t) in enumerate(zip(x.shape, tile_grid(x.shape, tile), tile)):
-        if g * t != d:
-            idx = torch.arange(g * t, device=x.device).clamp_(max=d - 1)
-            x = x.index_select(ax, idx)
-    return x
+    """Edge-mode padding to whole tiles (any rank)."""
+    return pad_edge(x, tuple(g * t for g, t in zip(tile_grid(x.shape, tile), tile)))
 
 
 def split_tiles(xp: torch.Tensor, tile: tuple[int, ...]) -> torch.Tensor:

@@ -494,3 +494,48 @@ def test_tiled_compress_launches_each_encode_kernel_once(cuda):
         counts = dict(ops.LAUNCHES)
         assert counts["symbol_hist"] == 1 + extra and counts["huffman_encode"] == 1 + extra
         assert card.to_bytes() == compress_tiled(x, 16, abs_eb=5.0, device="cpu")[0].to_bytes()
+
+
+@pytest.mark.parametrize("order", ["cubic", "linear"])
+def test_interp_on_the_card_matches_the_cpu(cuda, order, tmp_path):
+    """The interp predictor's single float32 operations give the same bits
+    on the card as on the CPU: SZJX and GWTC bytes, reconstructions and
+    decodes; region == full crop on the card; the Lorenzo kernels code the
+    coarse grid and the Huffman kernels the codes.  A spike forces
+    outliers (its residual is ~1 / (2 rel_eb) = 5e4 codes, past 2**15)."""
+    from repro_torch import api
+    from repro_torch.data import nyx_like_field
+    from repro_torch.sz import SZCompressor, SZCompressed, TiledCompressed, decompress
+
+    x = nyx_like_field((40, 36, 28), "velocity_x", seed=2)
+    x[7, 9, 11] = 50 * float(np.abs(x).max())
+    sz = SZCompressor(order=order)
+    ops.reset_launches()
+    card, recon = sz.compress(x, rel_eb=1e-5)
+    assert all(ops.LAUNCHES[k] > 0 for k in ("lorenzo_quant", "symbol_hist",
+                                             "huffman_encode")), ops.LAUNCHES
+    cpu, cpu_recon = sz.compress(x, rel_eb=1e-5, device="cpu")
+    assert card.outlier_idx.size > 0
+    assert card.to_bytes() == cpu.to_bytes() and torch.equal(recon.cpu(), cpu_recon)
+    back = decompress(SZCompressed.from_bytes(card.to_bytes()))
+    assert torch.equal(back, recon)
+    eb32 = float(np.float32(card.eb_abs))
+    assert float((back.cpu().double() - torch.from_numpy(x).double()).abs().max()) <= eb32
+
+    ops.reset_launches()
+    tcard, trecon = sz.compress_tiled(x, 16, rel_eb=1e-5)
+    assert ops.LAUNCHES["lorenzo_quant_tiles"] == 1
+    assert ops.LAUNCHES["symbol_hist"] == 1 and ops.LAUNCHES["huffman_encode"] == 1
+    tcpu, tcpu_recon = sz.compress_tiled(x, 16, rel_eb=1e-5, device="cpu")
+    assert tcard.to_bytes() == tcpu.to_bytes() and torch.equal(trecon.cpu(), tcpu_recon)
+    tback = TiledCompressed.from_bytes(tcard.to_bytes())
+    full = decompress_tiled(tback)
+    assert torch.equal(full, trecon)
+    roi = [(3, 37), (5, 20), (0, 28)]
+    assert torch.equal(decompress_region(tback, roi), full[3:37, 5:20, 0:28])
+    vol = api.compress(x, eb=1e-5, tiled=True, tile=(16, 16, 16), order=order)
+    api.save(tmp_path / "v.gwtc", vol)
+    with api.open(tmp_path / "v.gwtc") as opened:
+        whole = np.asarray(opened)
+        assert np.array_equal(whole, full.cpu().numpy())
+        assert np.array_equal(opened[3:20, :, 5], whole[3:20, :, 5])

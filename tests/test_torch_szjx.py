@@ -183,16 +183,28 @@ def test_golden_szjx_lorenzo_decodes_bitexact():
 
 
 def test_interp_predictor_is_not_ported():
+    """The interp predictor is the default and runs: ``SZCompressor()`` and
+    its ``compress_tiled`` round-trip within eb exactly, and the reference's
+    ``szjx_interp.bin`` decodes within eb + 8 float32 ulps of max|x|
+    (tests/test_torch_interp.py states the tolerance)."""
     x = _field((8, 8, 8))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        PS.SZCompressor().compress(x, rel_eb=1e-3, device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        PS.SZCompressor().compress_tiled(x, 4, rel_eb=1e-3, device=CPU)
+    sz = PS.SZCompressor()
+    art, recon = sz.compress(x, rel_eb=1e-3, device=CPU)
+    assert (art.predictor, art.order, art.levels, art.padded_shape) == ("interp", "cubic", 2,
+                                                                       (9, 9, 9))
+    back = PS.decompress(PS.SZCompressed.from_bytes(art.to_bytes()), device=CPU)
+    assert torch.equal(back, recon)
+    assert np.abs(back.numpy().astype(np.float64) - x).max() <= np.float32(art.eb_abs)
+    tart, trecon = sz.compress_tiled(x, 4, rel_eb=1e-3, device=CPU)
+    assert tart.predictor == "interp"
+    assert np.abs(trecon.numpy().astype(np.float64) - x).max() <= np.float32(tart.eb_abs)
     with open(os.path.join(GOLDEN, "szjx_interp.bin"), "rb") as f:
-        art = PS.SZCompressed.from_bytes(f.read())  # parses; decoding needs interp
-    assert art.predictor == "interp"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        PS.decompress(art, device=CPU)
+        gold = PS.SZCompressed.from_bytes(f.read())
+    assert gold.predictor == "interp"
+    src = np.load(os.path.join(GOLDEN, "volume_12_20_9.npy"))
+    out = PS.decompress(gold, device=CPU).numpy()
+    tol = 8 * 2.0**-23 * np.abs(src).max()
+    assert np.abs(out.astype(np.float64) - src).max() <= gold.eb_abs + tol
 
 
 def test_corrupt_szjx_raises_container_error():
@@ -284,7 +296,15 @@ def test_mono_port_decode_region_and_stats(mono_field, mono_port):
 
 
 def test_quick_compress_takes_the_reference_defaults(mono_field):
-    """The reference's quick_compress runs its default SZCompressor (interp),
-    which the port does not have yet."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        PP.quick_compress(mono_field, epochs=1, device=CPU)
+    """quick_compress runs the default SZCompressor (interp, cubic), as the
+    reference's does, and its enhanced decode reproduces its stats."""
+    from repro_torch.core import metrics
+
+    x = mono_field[:8, :24, :32]
+    art, stats = PP.quick_compress(x, n_groups=4, epochs=1, device=CPU)
+    assert (art.predictor, art.order) == ("interp", "cubic")
+    assert "gwlz" in art.extras
+    back = PS.SZCompressed.from_bytes(art.to_bytes())
+    out = PP.GWLZ().decode(back, device=CPU)
+    assert float(metrics.psnr(torch.from_numpy(x), out)) == stats.psnr_gwlz
+    assert stats.psnr_gwlz >= stats.psnr_sz - 1e-3
