@@ -73,27 +73,45 @@ Phases (any failure raises and the script exits non-zero):
               lanes of 65^3 padded tiles), container round trip, full decode
               and the region read; checks and prints as for interp, plus one
               symbol_hist and one huffman_encode launch per compress;
-9. gwlz_mono -- the paper's configuration: api.compress(predictor="lorenzo",
+9. stream  -- the out-of-core path: the temperature field saved to a .npy
+              and streamed off its memmap under the reference's default
+              256 MiB budget (tile 64^3, rel_eb 1e-3, huffman+zlib; Lorenzo
+              32 tiles a batch, 16 batches; interp 23, 23 batches, the last
+              short).  (a) Lorenzo bytes == main's eager container; (b)
+              transient device and append faults, retries == 2, same bytes;
+              (c) a hard fault leaves the journal, resume=True finishes it,
+              same bytes, open(verify="full"); (d) interp bytes ==
+              interp_tiled's, error <= float32(eb), ROI == crop; (e) enhancers
+              trained 5 epochs on the reservoir (32 tiles, 2,048 slices of
+              64x64), full decode, ROI == crop, PSNRs printed; (f) tracked
+              peak <= 2 x budget; (g) the three encode kernels once a batch,
+              group_hist and enhancer_fused in (e), huffman_decode on the
+              read-backs.  Prints each run's compress and host-stage seconds,
+              tile-read seconds, geometry, tracked and device peaks (the
+              eager main's beside them), and one batch's pageable upload;
+10. gwlz_mono -- the paper's configuration: api.compress(predictor="lorenzo",
               enhance=GWLZTrainConfig(epochs=5)) on the same field, the
               enhancers trained on 512 full 512x512 slices (51 steps an
               epoch; 5 epochs, cut from 300), then save, open, full decode
               and the ROI.  Checks as for gwlz;
-10. gwlz_interp -- the same on the default predictor (interp): the paper's
+11. gwlz_interp -- the same on the default predictor (interp): the paper's
               GWLZ over its SZ3-class baseline (5 epochs, cut from 300);
-11. bigstream -- one SZJX Lorenzo field whose single Huffman stream is past
+12. bigstream -- one SZJX Lorenzo field whose single Huffman stream is past
               2**31 bits (integer noise on [0, 2**16) at 512^3, abs_eb 0.5,
               ``huffman`` backend): api.compress -> save -> open -> full
               decode on the card, within eb (1 + 1e-6) and equal to x; the
               stream's bits are printed; and [0, 1) noise at 64^3, rel_eb
               1e-5, whose error past eb (float32 rounding of 2eb q, as in the
               reference) is printed, with the card's bytes equal to the CPU's;
-12. cli     -- ``python -m repro_torch.cli`` in subprocesses on
+13. cli     -- ``python -m repro_torch.cli`` in subprocesses on
               synthetic:temperature:64, tiled (tile 16) and monolithic,
               Lorenzo: compress -> info -> region -> decompress -> verify;
               the ROI equals the full crop, verify exits 0, and 1 on a copy
-              with one byte of one lane flipped; then compress without
-              --predictor (interp) -> decompress -> verify;
-13. kernels -- each kernel again at its path's shapes: against its plain
+              with one byte of one lane flipped; compress --stream
+              --mem-budget 1M (tile 16) -> verify, bytes equal to the tiled
+              file's, and --resume without --stream (exit 2); then compress
+              without --predictor (interp) -> decompress -> verify;
+14. kernels -- each kernel again at its path's shapes: against its plain
               version, then timed (see ``kernel_ms`` and
               ``launch_events_ms``) beside the plain version, a library call
               where one exists, and the bound (the larger of bytes over
@@ -107,9 +125,9 @@ Phases (any failure raises and the script exits non-zero):
               unpacked in build/parent (``git archive``), its two Lorenzo
               kernels are built from there, checked equal to this tree's and
               timed beside them on the same inputs (``parent``);
-14. cpu    -- the 128^3 corner compressed on the card and on the CPU gives
+15. cpu    -- the 128^3 corner compressed on the card and on the CPU gives
               identical bytes: GWTC Lorenzo, GWTC interp and SZJX interp;
-15. golden -- tests/golden/gwtc_v1.bin and szjx_lorenzo.bin decode on the
+16. golden -- tests/golden/gwtc_v1.bin and szjx_lorenzo.bin decode on the
               card bit for bit.
 
 Each phase prints a JSON line.  Then come the ``kernels`` line, the card's
@@ -167,6 +185,8 @@ INTERP_KERNELS = {  # needed on the interp paths: the coarse grid's Lorenzo kern
 # the path whose launches each kernel's row reports
 LAUNCH_PATH = {**{k: "main" for k in KERNELS}, "lorenzo_quant": "szjx",
                **{k: "gwlz" for k in GWLZ_KERNELS}}
+STREAM_BUDGET = 256 << 20  # the reference's default compress_stream mem_budget
+STREAM_EPOCHS = 5  # stream (e): the reservoir's 32 tiles, 2,048 slices of 64x64
 ENHANCE_RTOL = 1e-5  # |kernel - plain| <= ENHANCE_RTOL * (1 + max|plain|)
 # a parent commit's tree, unpacked with git archive: its Lorenzo kernels are
 # timed beside this tree's in the same run when it is there
@@ -636,11 +656,13 @@ def main_path(x_np):
 
     ops.reset_launches()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     art, recon = compress_tiled(x_np, TILE, rel_eb=REL_EB, backend=BACKEND)
     blob = art.to_bytes()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
     compress_launches = dict(ops.LAUNCHES)
     back = TiledCompressed.from_bytes(blob)
     out = decompress_tiled(back)
@@ -668,8 +690,18 @@ def main_path(x_np):
           "decompress_s": t2 - t1, "region_ms": (t3 - t2) * 1e3, "roi": [list(r) for r in ROI],
           "region_tiles": int(np.prod([-(-b // t) - a // t for (a, b), t in zip(ROI, TILE)])),
           "ratio": x_np.nbytes / len(blob), "container_bytes": len(blob),
+          "compress_device_peak_bytes": peak,
           "max_abs_err": err, "compress_launches": compress_launches, "launches": launches})
-    return art, blob, launches
+    return art, container_id(blob, t1 - t0, peak), launches
+
+
+def container_id(blob: bytes, compress_s: float, peak: int) -> dict:
+    """What the stream phase holds an eager container to: its sha256 and
+    size, and the eager compress's seconds and device peak."""
+    import hashlib
+
+    return {"sha256": hashlib.sha256(blob).hexdigest(), "bytes": len(blob),
+            "compress_s": compress_s, "device_peak_bytes": peak}
 
 
 def gwlz_path(x_np, phase: str):
@@ -885,11 +917,13 @@ def interp_tiled_path(x_np):
 
     ops.reset_launches()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     art, recon = compress_tiled(x_np, TILE, rel_eb=REL_EB, backend=BACKEND, predictor="interp")
     blob = art.to_bytes()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
     compress_launches = dict(ops.LAUNCHES)
     back = TiledCompressed.from_bytes(blob)
     out = decompress_tiled(back)
@@ -928,9 +962,219 @@ def interp_tiled_path(x_np):
           "roi": [list(r) for r in ROI], "ratio": x_np.nbytes / len(blob),
           "container_bytes": len(blob), "max_abs_err": err, "max_err_over_eb": err / eb32,
           "outliers": outliers, "decode_equals_recon": True, "roi_equals_crop": True,
+          "compress_device_peak_bytes": peak,
           "sweeps": sweeps, "compress_launches": compress_launches, "launches": launches})
-    return launches
+    return launches, container_id(blob, t1 - t0, peak)
 
+
+def stream_path(x_np, tmp: Path, eager: dict) -> dict:
+    """The out-of-core path: the 512^3 field written to a .npy and streamed
+    off its memmap by ``api.compress_stream`` / ``exec.stream_compress``
+    under the reference's default 256 MiB budget (``eager``: the main and
+    interp_tiled containers, see ``container_id``).  Runs, each fatal:
+    (a) Lorenzo, bytes equal to main's; (b) transient device and append
+    faults survived with retries == 2, same bytes; (c) a hard fault, then a
+    resume, same bytes, open(verify="full"); (d) interp, bytes equal to
+    interp_tiled's, error <= float32(eb), ROI == crop; (e) Lorenzo with
+    enhancers trained for STREAM_EPOCHS epochs on the reservoir, full decode
+    and ROI == crop; (f) every run's tracked peak <= 2 x the budget; (g) the
+    three encode kernels launched once per batch, the enhancer's two in (e),
+    huffman_decode on the read-backs.  Each run's compress seconds are split
+    on the caller's thread by timers wrapped around the executor's rel-eb
+    prepass, its batch reads (the memmap copy into the batch included), the
+    predictor's encode (synchronized) and lane packing, and the streamed
+    training; the rest (uploads, waits on the host stage, reservoir offers,
+    finalize) is ``other``.  Returns the phase's launches."""
+    import contextlib
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import metrics, trainer
+    from repro_torch.core.trainer import GWLZTrainConfig
+    from repro_torch.exec import NpyFileSource, executor, journal_path, plan_stream, stream_compress
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.fault import FailureInjector, RetryPolicy
+    from repro_torch.sz import decompress_tiled
+    from repro_torch.sz.predictor import get_predictor
+
+    spent = {}  # the current run's seconds by part, and its counts
+
+    @contextlib.contextmanager
+    def timed(targets):
+        """Wrap each (owner, attribute, key, sync) so a call adds its seconds
+        to spent[key] and one to spent[key + "_calls"]; restored on exit."""
+        saved = []
+        for owner, name, key, sync in targets:
+            fn, own = getattr(owner, name), name in vars(owner)
+
+            def wrapped(*a, _fn=fn, _key=key, _sync=sync, **k):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    if _sync:
+                        torch.cuda.synchronize()
+                    spent[_key] += time.perf_counter() - t
+                    spent[_key + "_calls"] += 1
+
+            saved.append((owner, name, fn, own))
+            setattr(owner, name, wrapped)
+        try:
+            yield
+        finally:
+            for owner, name, fn, own in reversed(saved):
+                if own:
+                    setattr(owner, name, fn)
+                else:
+                    delattr(owner, name)
+
+    parts = ("prepass", "read", "encode", "lane_pack", "train", "train_step")
+    targets = [(executor, "_resolve_eb_streaming", "prepass", False),
+               (executor, "_read_batch", "read", False),
+               (trainer, "train_enhancers_streamed", "train", True),
+               (trainer, "train_step", "train_step", False)]
+    for pred_name in ("lorenzo", "interp"):
+        cls = type(get_predictor(pred_name))
+        targets += [(cls, "encode_tiles", "encode", True),
+                    (cls, "lane_bytes_batch", "lane_pack", False)]
+
+    src = tmp / "stream_src.npy"
+    t0 = time.perf_counter()
+    np.save(src, x_np)
+    save_s = time.perf_counter() - t0
+    kw = dict(rel_eb=REL_EB, tile=TILE, mem_budget=STREAM_BUDGET, backend=BACKEND)
+    ops.reset_launches()  # the phase's launches, over every run below
+    runs = {}
+
+    def stream(name: str, **extra):
+        out = tmp / f"stream_{name}.gwtc"
+        before = dict(ops.LAUNCHES)
+        spent.update({k: 0.0 for k in parts}, **{k + "_calls": 0 for k in parts})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with timed(targets):
+            rep = stream_compress(NpyFileSource(src), str(out), **{**kw, **extra})
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        blob = out.read_bytes()
+        launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        check(rep.peak_tracked_bytes <= 2 * STREAM_BUDGET,
+              f"stream {name}: tracked peak {rep.peak_tracked_bytes} past 2 x the budget")
+        check(rep.entropy_device and rep.nbytes == len(blob), f"stream {name}: report")
+        check(all(launches[k] == rep.n_batches - rep.resumed_batches for k in LANE_KERNELS)
+              and launches["lorenzo_quant_tiles"] >= rep.n_batches - rep.resumed_batches,
+              f"stream {name}: the encode kernels did not launch once a batch: {launches}")
+        split = {k: spent[k] for k in parts[:-1]}
+        split["other"] = s - sum(split.values())
+        runs[name] = {"compress_s": s, "host_stage_s": rep.host_stage_s,
+                      "caller_thread_s": split, "batch_reads": spent["read_calls"],
+                      "train_steps": spent["train_step_calls"],
+                      "n_batches": rep.n_batches, "batch_tiles": rep.batch_tiles,
+                      "peak_tracked_bytes": rep.peak_tracked_bytes,
+                      "device_peak_bytes": torch.cuda.max_memory_allocated(),
+                      "retries": rep.retries, "failed_batches": list(rep.failed_batches),
+                      "resumed_batches": rep.resumed_batches, "container_bytes": len(blob),
+                      "sha256": hashlib.sha256(blob).hexdigest(), "launches": launches}
+        return rep, out
+
+    dev = torch.device("cuda")
+    x = torch.from_numpy(x_np).to(dev)
+    roi = roi_key()
+
+    def read_back(name: str, out: Path):
+        """Open, full decode and ROI on the card; returns the decode."""
+        before = dict(ops.LAUNCHES)
+        t = time.perf_counter()
+        with api.open(out) as vol:
+            full = torch.from_numpy(np.array(vol)).to(dev)
+            check(np.array_equal(vol[roi], full[roi].cpu().numpy()),
+                  f"stream {name}: ROI != the full decode's crop")
+        runs[name]["decode_s"] = time.perf_counter() - t
+        check(ops.LAUNCHES["huffman_decode"] > before["huffman_decode"],
+              f"stream {name}: the read-back never launched huffman_decode")
+        check(tuple(full.shape) == SHAPE and bool(torch.isfinite(full).all()),
+              f"stream {name}: decode shape")
+        return full
+
+    lor_plan = plan_stream(SHAPE, TILE, STREAM_BUDGET, device_entropy=True)
+    check((lor_plan.batch_tiles, lor_plan.n_batches) == (32, 16), "Lorenzo stream geometry")
+    # (a) Lorenzo == the eager main container
+    rep, out = stream("lorenzo")
+    want = eager["main"]
+    check((runs["lorenzo"]["sha256"], rep.nbytes) == (want["sha256"], want["bytes"]),
+          "(a) the Lorenzo stream differs from the eager main container")
+    full = read_back("lorenzo", out)
+    err = float((x.double() - full.double()).abs().max())
+    check(err <= rep.eb_abs * (1 + 1e-6), f"(a) error {err} above eb {rep.eb_abs}")
+    del full
+    # a batch's pageable upload, timed apart on the host clock (the stream
+    # makes one a batch; the copy from pageable memory blocks the host)
+    batch = np.empty((lor_plan.batch_tiles,) + TILE, np.float32)
+    batch[:] = x_np[: TILE[0], : TILE[1], : TILE[2]]
+    torch.from_numpy(batch).to(dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        torch.from_numpy(batch).to(dev)
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t) * 100
+    del batch
+    # (b) transient faults survived
+    rep, out = stream("transient", injector=FailureInjector({1}),
+                      write_injector=FailureInjector({5}, exc=OSError),
+                      retry=RetryPolicy(max_attempts=3, backoff=0.0))
+    check(rep.retries == 2 and runs["transient"]["sha256"] == want["sha256"],
+          f"(b) retries {rep.retries} or bytes differ")
+    # (c) a hard fault leaves (partial, journal); resume finishes it
+    killed = tmp / "stream_resumed.gwtc"
+    try:
+        stream_compress(NpyFileSource(src), str(killed), **kw,
+                        injector=FailureInjector({2}, attempts=9), retry=RetryPolicy(2, 0.0))
+        check(False, "(c) the hard fault did not exhaust the retry policy")
+    except RuntimeError as e:
+        check("injected" in str(e), f"(c) not the injected fault: {e}")
+    check(os.path.exists(journal_path(killed)), "(c) no journal after the hard fault")
+    rep, out = stream("resumed", resume=True)
+    check(rep.resumed_batches == 2 and runs["resumed"]["sha256"] == want["sha256"],
+          f"(c) resumed {rep.resumed_batches} batches, or bytes differ")
+    check(not os.path.exists(journal_path(killed)), "(c) the journal outlived finalize")
+    api.open(killed, verify="full").close()
+    # (d) interp == the eager interp_tiled container
+    rep, out = stream("interp", predictor="interp")
+    want = eager["interp_tiled"]
+    check((rep.batch_tiles, rep.n_batches) == (23, 23), "interp stream geometry")
+    check((runs["interp"]["sha256"], rep.nbytes) == (want["sha256"], want["bytes"]),
+          "(d) the interp stream differs from the eager interp_tiled container")
+    full = read_back("interp", out)
+    eb32 = float(np.float32(rep.eb_abs))
+    err = float((x.double() - full.double()).abs().max())
+    check(err <= eb32, f"(d) interp error {err} above eb {eb32}")
+    del full
+    # (e) enhancers trained on the reservoir sample
+    cfg = GWLZTrainConfig(epochs=STREAM_EPOCHS)
+    rep, out = stream("enhanced", enhance=cfg)
+    check(rep.enhanced and rep.reservoir_tiles == 32, f"(e) reservoir {rep.reservoir_tiles}")
+    check(all(runs["enhanced"]["launches"][k] > 0 for k in GWLZ_KERNELS),
+          f"(e) an enhancer kernel never launched: {runs['enhanced']['launches']}")
+    full = read_back("enhanced", out)
+    with api.open(out) as vol:
+        sz = decompress_tiled(vol.artifact)  # the container's SZ half, no enhancer
+    runs["enhanced"].update(
+        psnr_sz=float(metrics.psnr(x, sz)), psnr_enhanced=float(metrics.psnr(x, full)),
+        reservoir_tiles=rep.reservoir_tiles, epochs=cfg.epochs)
+    check(runs["enhanced"]["train_steps"] > 0, "(e) the streamed training took no step")
+    del full, sz, x
+    launches = dict(ops.LAUNCHES)
+    emit({"phase": "stream", "shape": list(SHAPE), "tile": list(TILE), "rel_eb": REL_EB,
+          "backend": BACKEND, "mem_budget": STREAM_BUDGET, "source": "npy memmap",
+          "save_npy_s": save_s, "batch_upload_ms": upload_ms,
+          "batch_upload_bytes": lor_plan.batch_tiles * int(np.prod(TILE)) * 4,
+          "eager": eager, "runs": runs, "launches": launches})
+    return launches
 
 def bigstream_path(tmp: Path):
     """One SZJX Lorenzo field whose single Huffman stream is past 2**31 bits:
@@ -1088,6 +1332,17 @@ def cli_path(tmp: Path) -> None:
         full, part = np.load(tmp / f"full_{mode}.npy"), np.load(tmp / f"roi_{mode}.npy")
         check(np.array_equal(part, full[8:40, 0:16, 20:52]), f"cli {mode}: ROI != full crop")
         sizes[mode] = os.path.getsize(f)
+    # the out-of-core path under a 1 MiB budget (8 batches of 8 tiles), then
+    # verify: its bytes equal the eager tiled container's; --resume needs --stream
+    f = str(tmp / "cli_stream.gw")
+    streamed = run("compress", "synthetic:temperature:64", f, "--eb", "1e-3", "--predictor",
+                   "lorenzo", "--stream", "--mem-budget", "1M", "--tile", "16").strip()
+    run("verify", f)
+    check(Path(f).read_bytes() == (tmp / "cli_tiled.gw").read_bytes(),
+          f"cli --stream bytes differ from the tiled compress: {streamed}")
+    sizes["stream"] = os.path.getsize(f)
+    run("compress", "synthetic:temperature:64", str(tmp / "cli_resume.gw"), "--eb", "1e-3",
+        "--resume", want=2)
     # the default predictor (interp), monolithic
     f = str(tmp / "cli_interp.gw")
     run("compress", "synthetic:temperature:64", f, "--eb", "1e-3")
@@ -1104,7 +1359,8 @@ def cli_path(tmp: Path) -> None:
     bad.write_bytes(bytes(blob))
     run("verify", str(bad), want=1)
     emit({"phase": "cli", "input": "synthetic:temperature:64", "roi": roi,
-          "container_bytes": sizes, "flipped_lane_verify_exit": 1,
+          "container_bytes": sizes, "flipped_lane_verify_exit": 1, "stream_line": streamed,
+          "resume_without_stream_exit": 2,
           "seconds": {k: [round(v, 3) for v in vs] for k, vs in took.items()}})
 
 
@@ -1552,8 +1808,7 @@ def main() -> int:
     emit({"phase": "field", "field": "temperature", "shape": list(SHAPE),
           "seconds": time.perf_counter() - t0})
 
-    art, blob, launches = main_path(x_np)
-    del blob
+    art, main_id, launches = main_path(x_np)
     gw = {"gwlz": gwlz_path(x_np, "gwlz")}
     t0 = time.perf_counter()
     vx = nyx_like_field(SHAPE, GWLZ_FIELDS["gwlz_all_groups"], seed=0)
@@ -1564,7 +1819,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sz_art, sz_launches = szjx_path(x_np, Path(tmp))
         interp_launches = interp_path(x_np, Path(tmp))
-        interp_tiled_launches = interp_tiled_path(x_np)
+        interp_tiled_launches, interp_id = interp_tiled_path(x_np)
+        stream_launches = stream_path(x_np, Path(tmp), {"main": main_id,
+                                                        "interp_tiled": interp_id})
         mono = gwlz_mono_path(x_np, Path(tmp))
         gw_interp = gwlz_mono_path(x_np, Path(tmp), "gwlz_interp", "interp")
         big_launches = bigstream_path(Path(tmp))
@@ -1572,7 +1829,7 @@ def main() -> int:
     path_launches = {"main": launches, "gwlz": gw["gwlz"][2], "szjx": sz_launches,
                      "interp": interp_launches, "interp_tiled": interp_tiled_launches,
                      "gwlz_mono": mono[2], "gwlz_interp": gw_interp[2],
-                     "bigstream": big_launches}
+                     "bigstream": big_launches, "stream": stream_launches}
     check(all(ls["huffman_decode"] > 0 for ls in path_launches.values()),
           "huffman_decode missed a path")
     check(all(ls["enhancer_fused"] > 0 for ls in (gw["gwlz"][2], gw["gwlz_all_groups"][2],

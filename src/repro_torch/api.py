@@ -21,10 +21,12 @@ must exist); pass ``device="cpu"`` to run the plain PyTorch versions.  The
 handle decodes on its device and returns numpy arrays.
 
 The default predictor is interp (SZ3-style interpolation), as in the
-reference; ``predictor="lorenzo"`` selects the Lorenzo predictor.  Not
-ported yet: ``compress_stream`` (ROADMAP.md Queue 1 item 7) and the
-multi-field ``Dataset`` / ``GWDS`` envelope (item 9); they raise
-:class:`NotImplementedError`.
+reference; ``predictor="lorenzo"`` selects the Lorenzo predictor.
+:func:`compress_stream` is the out-of-core path: it streams a ``.npy``
+memmap, an array or a slab iterator into a ``GWTC`` container under a byte
+budget (Lorenzo by default, as in the reference).  Not ported yet: the
+multi-field ``Dataset`` / ``GWDS`` envelope (ROADMAP.md Queue 1 item 9); it
+raises :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -442,11 +444,42 @@ def compress(x, *, eb: float | None = None, abs_eb: float | None = None,
                               callback=callback, device=device)
 
 
-def compress_stream(source, out, **kwargs):
-    """Out-of-core compress through the streaming executor: not ported yet
-    (ROADMAP.md Queue 1 item 7)."""
-    raise NotImplementedError("compress_stream is not ported yet "
-                              "(ROADMAP.md Queue 1 item 7)")
+def compress_stream(source, out, *, eb: float | None = None, abs_eb: float | None = None,
+                    tile=(64, 64, 64), mem_budget: int = 256 << 20, predictor: str = "lorenzo",
+                    order: str = "cubic", backend: str = "huffman+zlib", max_levels: int = 5,
+                    enhance: bool | GWLZTrainConfig = False, shape=None, resume: bool = False,
+                    retry=None, device=None):
+    """Out-of-core compress: stream ``source`` into a ``GWTC`` container at
+    ``out`` without ever materializing the volume (docs/STREAMING.md).
+
+    ``source`` is a ``.npy`` path, an array/``np.memmap``, a
+    :class:`repro_torch.exec.TileSource`, or an iterator of axis-0 slabs
+    (pass ``shape=``); ``out`` a path, file object, or an open
+    :class:`repro_torch.exec.GWTCWriter`.  The executor reads tile batches
+    sized against ``mem_budget`` on the host, encodes each on ``device``
+    (None: the CUDA device, which must exist), overlaps that with the host
+    append of the previous batch, and writes lanes through the incremental
+    writer; the tile index lands in the container footer on finalize.
+    ``enhance`` trains group-wise GWLZ enhancers on a reservoir sample of
+    tile batches.  A relative ``eb`` takes a min/max prepass over the
+    source, so one-shot iterator sources need ``abs_eb``.
+
+    Returns a :class:`repro_torch.exec.StreamReport` (peak tracked bytes,
+    batch geometry, container size).  Open the result with :func:`open`.
+
+    Fault tolerance (docs/ROBUSTNESS.md): transient encode/append failures
+    retry under ``retry`` (a :class:`repro_torch.runtime.fault.RetryPolicy`;
+    default 3 attempts with backoff), each batch is journaled as it lands,
+    and ``resume=True`` re-opens an interrupted path destination at its
+    last committed batch; the resumed container is byte-identical to an
+    uninterrupted run."""
+    from repro_torch.exec import stream_compress
+
+    return stream_compress(
+        source, out, tile=tile, rel_eb=eb, abs_eb=abs_eb, backend=backend,
+        predictor=predictor, order=order, max_levels=max_levels, mem_budget=mem_budget,
+        enhance=(enhance if enhance else None), shape=shape, resume=resume, retry=retry,
+        device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@
                               [--eb 1e-3 | --abs-eb X] [--tiled] [--tile 32]
                               [--predictor interp|lorenzo] [--order linear|cubic]
                               [--backend ...] [--enhance --groups 8 --epochs 60]
+                              [--stream [--mem-budget 256M] [--resume] [--retries 3]]
     python -m repro_torch.cli decompress IN OUT.npy
     python -m repro_torch.cli info       PATH
     python -m repro_torch.cli region     PATH --roi "8:40,:,16:32" [--out OUT.npy]
@@ -25,9 +26,15 @@ arithmetic).
 (the default, the port's kernels; no card is an error) or ``cpu`` (their
 plain PyTorch versions).
 
-Not ported yet: ``--stream``/``--resume`` (ROADMAP.md Queue 1 item 7),
-GWDS datasets and ``--field`` (item 9), and the ``serve``/``lint``
-commands.
+``compress --stream`` is the out-of-core path (``api.compress_stream``): a
+``.npy`` input streams off its memmap in tile batches sized against
+``--mem-budget`` into a GWTC container, journaled as it goes;
+``--resume`` continues an interrupted ``--stream`` run from its commit
+journal (``<output>.journal``), and ``--retries`` sets the attempts per
+batch for transient faults.
+
+Not ported yet: GWDS datasets and ``--field`` (ROADMAP.md Queue 1 item 9),
+and the ``serve``/``lint`` commands.
 
 Exit codes are uniform across subcommands: **0** success, **1** integrity
 failure (corrupt container / failed CRC), **2** usage error (bad
@@ -79,6 +86,18 @@ def _open(path, what: str, args, **kw):
         raise _fail(what, e) from None
 
 
+def parse_size(text: str) -> int:
+    """'256M' / '64K' / '2G' / '1048576' -> bytes."""
+    t = text.strip().upper().removesuffix("B")
+    mult = {"K": 1 << 10, "M": 1 << 20, "G": 1 << 30}.get(t[-1:] or "", None)
+    if mult is not None:
+        t = t[:-1]
+    try:
+        return int(float(t) * (mult or 1))
+    except ValueError:
+        raise ValueError(f"bad size {text!r} (expected e.g. 256M, 64K, 1G)") from None
+
+
 def parse_roi(text: str) -> tuple:
     """'8:40,:,16:32' -> tuple of slices/ints (start:stop:step per axis)."""
     out = []
@@ -111,10 +130,45 @@ def _load_volume(spec: str) -> np.ndarray:
         raise _fail("compress", f"cannot load {spec!r}: {e}") from None
 
 
+def _stream(args, enhance, device) -> int:
+    """``compress --stream``: .npy paths stream straight off the memmap;
+    synthetic fields are generated in memory (they exist for smoke tests,
+    not scale)."""
+    try:
+        budget = parse_size(args.mem_budget)
+    except ValueError as e:
+        raise _fail("compress", e) from None
+    from repro_torch.exec import as_source
+    from repro_torch.runtime.fault import RetryPolicy
+
+    source = args.input if args.input.endswith(".npy") else _load_volume(args.input)
+    try:
+        src = as_source(source)
+    except OSError as e:
+        raise _fail("compress", f"cannot load {args.input!r}: {e}") from None
+    retry = None if args.retries is None else RetryPolicy(max_attempts=max(1, args.retries))
+    rep = api.compress_stream(
+        src, args.output, eb=args.eb, abs_eb=args.abs_eb, tile=(args.tile,) * len(src.shape),
+        mem_budget=budget, predictor=args.predictor, order=args.order, backend=args.backend,
+        enhance=enhance, resume=args.resume, retry=retry, device=device)
+    raw = int(np.prod(rep.shape)) * 4
+    fault = ""
+    if rep.retries:
+        fault = (f"; {rep.retries} retr{'y' if rep.retries == 1 else 'ies'} on batches "
+                 f"{list(rep.failed_batches)}")
+    if rep.resumed_batches:
+        fault += f"; resumed past {rep.resumed_batches} committed batches"
+    print(f"streamed {args.output}: {rep.nbytes} bytes (cr {raw / rep.nbytes:.1f}x) in "
+          f"{rep.n_batches} batches of {rep.batch_tiles} tiles; peak "
+          f"{rep.peak_tracked_bytes / 2**20:.1f} MiB tracked of "
+          f"{rep.mem_budget / 2**20:.1f} MiB budget"
+          + (", enhanced" if rep.enhanced else "") + fault)
+    return EXIT_OK
+
+
 def cmd_compress(args) -> int:
-    if args.stream or args.resume:
-        raise _fail("compress", "--stream/--resume: streaming compression is not ported "
-                                "yet (ROADMAP.md Queue 1 item 7)")
+    if args.resume and not args.stream:
+        raise _fail("compress", "--resume requires --stream")
     device = _device(args, "compress")
     enhance: bool | object = False
     if args.enhance:
@@ -122,6 +176,8 @@ def cmd_compress(args) -> int:
 
         enhance = GWLZTrainConfig(n_groups=args.groups, epochs=args.epochs,
                                   min_group_pixels=args.min_group_pixels)
+    if args.stream:
+        return _stream(args, enhance, device)
     x = _load_volume(args.input)
     vol = api.compress(x, eb=args.eb, abs_eb=args.abs_eb, tiled=args.tiled,
                        tile=(args.tile,) * x.ndim, enhance=enhance,
@@ -218,11 +274,17 @@ def main(argv: list[str] | None = None) -> int:
     c.add_argument("--backend", default="huffman+zlib",
                    choices=["zlib", "huffman", "huffman+zlib"])
     c.add_argument("--stream", action="store_true",
-                   help="bounded-memory out-of-core compress (not ported yet)")
+                   help="bounded-memory out-of-core compress (GWTC container)")
+    c.add_argument("--mem-budget", default="256M",
+                   help="streaming byte budget, e.g. 64M / 512K / 1G")
     c.add_argument("--resume", action="store_true",
-                   help="continue an interrupted --stream run (not ported yet)")
+                   help="continue an interrupted --stream run from its commit journal "
+                        "(<output>.journal)")
+    c.add_argument("--retries", type=int, default=None,
+                   help="per-batch retry attempts for transient faults (default: 3)")
     c.add_argument("--enhance", action="store_true",
-                   help="train + attach group-wise GWLZ enhancers")
+                   help="train + attach group-wise GWLZ enhancers"
+                        " (streamed runs train on a reservoir tile sample)")
     c.add_argument("--groups", type=int, default=8)
     c.add_argument("--epochs", type=int, default=60)
     c.add_argument("--min-group-pixels", type=int, default=256)

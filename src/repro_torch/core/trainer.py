@@ -230,6 +230,75 @@ def train_enhancers_tiled(recon_tiles: torch.Tensor, residual_tiles: torch.Tenso
                            cfg, params=params, callback=callback, device=device)
 
 
+class TileReservoir:
+    """Bounded uniform sample of (recon, residual) tile pairs from a stream.
+
+    Algorithm R over the tile stream, on the host: the streaming compressor
+    (``repro_torch.exec.executor``) cannot hold every tile's reconstruction
+    for enhancer training the way the eager path does, so it offers each
+    batch's tiles here and trains on the reservoir, an unbiased sample of
+    the volume whatever its size, in ``capacity * tile_bytes * 2`` memory.
+    The draws come from ``np.random.default_rng(seed)`` exactly as in the
+    reference, so both packages keep the same tiles."""
+
+    def __init__(self, capacity: int, seed: int = 0):
+        if capacity < 1:
+            raise ValueError("reservoir capacity must be >= 1")
+        self.capacity = int(capacity)
+        self.n_seen = 0
+        self._rng = np.random.default_rng(seed)
+        self._recon: list[np.ndarray] = []
+        self._resid: list[np.ndarray] = []
+
+    def __len__(self) -> int:
+        return len(self._recon)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(a.nbytes for a in self._recon) + sum(a.nbytes for a in self._resid)
+
+    def offer(self, recon_tiles: np.ndarray, resid_tiles: np.ndarray) -> int:
+        """Offer one tile batch ([B, *tile] pairs); returns bytes GROWN (for
+        the executor's memory accounting: replacements are size-neutral)."""
+        if recon_tiles.shape != resid_tiles.shape:
+            raise ValueError(f"recon/residual shape mismatch: {recon_tiles.shape} vs "
+                             f"{resid_tiles.shape}")
+        grown = 0
+        for rec, res in zip(recon_tiles, resid_tiles):
+            self.n_seen += 1
+            if len(self._recon) < self.capacity:
+                self._recon.append(np.array(rec, np.float32))
+                self._resid.append(np.array(res, np.float32))
+                grown += self._recon[-1].nbytes + self._resid[-1].nbytes
+            else:
+                j = int(self._rng.integers(0, self.n_seen))
+                if j < self.capacity:
+                    self._recon[j] = np.array(rec, np.float32)
+                    self._resid[j] = np.array(res, np.float32)
+        return grown
+
+    def stacks(self) -> tuple[np.ndarray, np.ndarray]:
+        if not self._recon:
+            raise ValueError("empty reservoir: offer at least one tile batch")
+        return np.stack(self._recon), np.stack(self._resid)
+
+
+def train_enhancers_streamed(reservoir: TileReservoir,
+                             cfg: GWLZTrainConfig = GWLZTrainConfig(), *, callback=None,
+                             device=None):
+    """Group-wise training for the streaming path: fit on the reservoir's
+    sampled tile pairs exactly as :func:`train_enhancers_tiled` fits on the
+    full grid, on ``device``.  The model is volume-agnostic (it maps decoded
+    values to residuals through the group edges), so a uniform sample
+    trains the same estimator the full stack would, with sampling noise
+    bounded by the reservoir size."""
+    device = resolve_device(device)
+    recon, resid = reservoir.stacks()
+    return train_enhancers_tiled(torch.from_numpy(recon).to(device),
+                                 torch.from_numpy(resid).to(device), cfg,
+                                 callback=callback, device=device)
+
+
 @torch.no_grad()
 def _gate_groups(enh: GroupEnhancers, xs, rs, ids, edges, rscale, *,
                  chunk_slices: int | None = None) -> torch.Tensor:

@@ -203,9 +203,17 @@ def test_entry_points_without_device_need_cuda(volumes, tmp_path):
             call()
 
 
-def test_parts_not_ported_raise(volumes, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        api.compress_stream("x.npy", tmp_path / "x.gwtc", abs_eb=1.0)
+def test_parts_not_ported_raise(volumes, field, tmp_path):
+    """GWDS (item 9) still raises; streaming (item 7) is ported and writes the
+    reference's stream bytes."""
+    src = tmp_path / "x.npy"
+    np.save(src, field)
+    rep = api.compress_stream(str(src), tmp_path / "x.gwtc", eb=1e-3, tile=(8, 8, 8),
+                              mem_budget=64 << 10, device=CPU)
+    rrep = rapi.compress_stream(str(src), tmp_path / "r.gwtc", eb=1e-3, tile=(8, 8, 8),
+                                mem_budget=64 << 10)
+    assert rep.n_batches == rrep.n_batches > 1
+    assert (tmp_path / "x.gwtc").read_bytes() == (tmp_path / "r.gwtc").read_bytes()
     with pytest.raises(NotImplementedError, match="item 9"):
         api.save(tmp_path / "d.gwds", {"t": volumes["szjx"][0]})
     with pytest.raises(NotImplementedError, match="item 9"):
@@ -265,14 +273,26 @@ def test_cli_exit_codes_match_reference(tmp_path, capsys):
         (["compress", str(src), str(tmp_path / "o.gwtc")], 2),  # no --eb
         (["compress", str(tmp_path / "missing.npy"), str(tmp_path / "o.gwtc"),
           "--eb", "1e-3", "--predictor", "lorenzo"], 2),
+        (["compress", str(src), str(tmp_path / "o.gwtc"), "--eb", "1e-3", "--resume"], 2),
+        (["compress", str(src), str(tmp_path / "o.gwtc"), "--eb", "1e-3", "--stream",
+          "--mem-budget", "lots"], 2),
     ]
     for argv, code in cases:
         assert _run(rcli.main, argv) == code, argv
         assert _run(cli.main, ["--device", CPU] + argv) == code, argv
-    # the port's own usage error: streaming is not ported yet
-    assert _run(cli.main, ["--device", CPU, "compress", str(src), str(tmp_path / "s.gwtc"),
-                           "--eb", "1e-3", "--predictor", "lorenzo", "--stream"]) == 2
-    assert "item 7" in capsys.readouterr().err
+    # a streamed compress under a budget that forces several batches, then
+    # verify: the bytes equal the reference CLI's --stream output
+    stream = ["compress", str(src), None, "--eb", "1e-3", "--predictor", "lorenzo",
+              "--stream", "--mem-budget", "32K", "--tile", "8", "--retries", "2"]
+    for pkg, main, pre in (("ref", rcli.main, []), ("port", cli.main, ["--device", CPU])):
+        stream[2] = str(tmp_path / f"{pkg}_s.gwtc")
+        assert _run(main, pre + stream) == 0
+        assert "in 4 batches of 2 tiles" in capsys.readouterr().out
+        assert _run(main, pre + ["verify", stream[2]]) == 0
+    assert (tmp_path / "ref_s.gwtc").read_bytes() == (tmp_path / "port_s.gwtc").read_bytes()
+    assert cli.parse_size("256M") == rcli.parse_size("256M") == 256 << 20
+    assert cli.parse_size("64k") == 64 << 10 and cli.parse_size("1048576") == 1 << 20
+    assert cli.parse_size("2G") == 2 << 30
     # the default predictor (interp) compresses
     out = tmp_path / "i.szjx"
     assert _run(cli.main, ["--device", CPU, "compress", str(src), str(out), "--eb",

@@ -8,6 +8,8 @@ the port is installed:
 Every test needs a CUDA device and skips without one (the kernels have no
 CPU mode; the CPU parity tests are the other ``tests/test_torch_*.py``).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -539,3 +541,36 @@ def test_interp_on_the_card_matches_the_cpu(cuda, order, tmp_path):
         whole = np.asarray(opened)
         assert np.array_equal(whole, full.cpu().numpy())
         assert np.array_equal(opened[3:20, :, 5], whole[3:20, :, 5])
+
+
+@pytest.mark.parametrize("predictor", ["lorenzo", "interp"])
+def test_stream_on_the_card_matches_the_cpu(cuda, predictor, tmp_path):
+    """A streamed compress on the card (lanes packed in the device stage)
+    writes the CPU stream's bytes, several batches with a short final one;
+    the three encode kernels launch once per batch; a hard fault and a
+    resume on the card end in the same bytes."""
+    from repro_torch.data import nyx_like_field
+    from repro_torch.exec import journal_path, stream_compress
+    from repro_torch.runtime.fault import FailureInjector, RetryPolicy
+
+    x = nyx_like_field((40, 40, 40), "temperature", seed=5)
+    kw = dict(rel_eb=1e-3, tile=(16, 16, 16), mem_budget=1 << 20, predictor=predictor)
+    ops.reset_launches()
+    card = stream_compress(x, str(tmp_path / "card.gwtc"), **kw)
+    launches = dict(ops.LAUNCHES)
+    cpu = stream_compress(x, str(tmp_path / "cpu.gwtc"), device="cpu", **kw)
+    assert card.entropy_device and not cpu.entropy_device
+    assert card.n_batches > 1 and card.n_tiles % card.batch_tiles
+    assert (tmp_path / "card.gwtc").read_bytes() == (tmp_path / "cpu.gwtc").read_bytes()
+    assert (tmp_path / "card.gwtc").read_bytes() == \
+        compress_tiled(x, 16, rel_eb=1e-3, predictor=predictor)[0].to_bytes()
+    assert launches["symbol_hist"] == launches["huffman_encode"] == card.n_batches
+    assert launches["lorenzo_quant_tiles"] >= card.n_batches  # interp: its coarse grids
+    out = tmp_path / "killed.gwtc"
+    with pytest.raises(RuntimeError, match="injected"):
+        stream_compress(x, str(out), injector=FailureInjector({1}, attempts=9),
+                        retry=RetryPolicy(max_attempts=2, backoff=0.0), **kw)
+    assert os.path.exists(journal_path(out))
+    rep = stream_compress(x, str(out), resume=True, **kw)
+    assert rep.resumed_batches == 1
+    assert out.read_bytes() == (tmp_path / "cpu.gwtc").read_bytes()
