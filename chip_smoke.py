@@ -5,7 +5,7 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build   -- compile the six CUDA sources (seven kernels) from
+1. build   -- compile the seven CUDA sources (eight kernels) from
               ``src/repro_torch/csrc`` (one nvcc per source, all at once)
               and time it;
 2. edges   -- each kernel against its plain PyTorch version on the card on
@@ -39,6 +39,17 @@ Phases (any failure raises and the script exits non-zero):
               zeroed just before and read just after (as in every phase
               below), and read after the compress too: it must launch
               symbol_hist and huffman_encode once each, for all 512 lanes;
+3b. legacy -- the entropy codec's read leftovers: encode_codes_legacy of
+              the main field's 512 lane codes (hz) and of the 128^3 corner's
+              whole-volume stream (hf), bytes equal to the CPU route's (every
+              eighth lane and the stream), their decode on the card (one
+              boundary pass, huffman_legacy, then one huffman_decode a blob)
+              equal to the codes, decode_codes_range equal to the full
+              decode's slice on hZ/hz lanes and hc/hf streams; the boundary
+              pass against its plain version (edge cases: codes past the
+              12-bit LUT, an alphabet past 4,096 symbols, one symbol, 100
+              symbols), then timed on a lane and on the stream beside its
+              bound (bytes read over 3.35 TB/s);
 4. gwlz    -- the GWLZ enhancer path on the same field at the paper's model
               width (G = 20, C = 9, batch 10; 1 epoch, cut from 300):
               GWLZ.compress_tiled -> to_bytes -> from_bytes -> enhanced
@@ -103,6 +114,20 @@ Phases (any failure raises and the script exits non-zero):
               stream's bits are printed; and [0, 1) noise at 64^3, rel_eb
               1e-5, whose error past eb (float32 rounding of 2eb q, as in the
               reference) is printed, with the card's bytes equal to the CPU's;
+12b. serve -- the serving daemon: one RegionServer on 127.0.0.1:0 over
+              the gwlz phase's enhanced tiled volume, the main Lorenzo
+              container and the szjx file, one shared 256 MiB cache, a 256
+              MiB admission budget, a 2 ms batcher window; 100 client
+              threads x 3 requests over 32 seeded overlapping ROIs (1-8
+              lanes inside one 4x4x4-lane block; every eighth a monolithic
+              crop).  Checks: every body equals np.save of the crop of an
+              eager full decode through a separate handle, hit rate >= 0.5,
+              no error or 503, a repeat with the ETag gets 304 with no decode
+              (dispatch and launch counters unmoved), and 100 concurrent
+              single-lane reads in process make >= 2x fewer decode dispatches
+              with the batcher than without.  Prints client p50/p99 and
+              req/s, the hit rate, the batcher's and admission's counters,
+              the storm's launches per kernel and the device peak;
 13. cli     -- ``python -m repro_torch.cli`` in subprocesses on
               synthetic:temperature:64, tiled (tile 16) and monolithic,
               Lorenzo: compress -> info -> region -> decompress -> verify;
@@ -110,7 +135,9 @@ Phases (any failure raises and the script exits non-zero):
               with one byte of one lane flipped; compress --stream
               --mem-budget 1M (tile 16) -> verify, bytes equal to the tiled
               file's, and --resume without --stream (exit 2); then compress
-              without --predictor (interp) -> decompress -> verify;
+              without --predictor (interp) -> decompress -> verify; and the
+              CI serve smoke, ``serve nyx=<tiled> dm=<stream> --port 0
+              --smoke``, exits 0;
 14. kernels -- each kernel again at its path's shapes: against its plain
               version, then timed (see ``kernel_ms`` and
               ``launch_events_ms``) beside the plain version, a library call
@@ -125,6 +152,7 @@ Phases (any failure raises and the script exits non-zero):
               unpacked in build/parent (``git archive``), its two Lorenzo
               kernels are built from there, checked equal to this tree's and
               timed beside them on the same inputs (``parent``);
+              huffman_legacy's row is the one measured in the legacy phase;
 15. cpu    -- the 128^3 corner compressed on the card and on the CPU gives
               identical bytes: GWTC Lorenzo, GWTC interp and SZJX interp;
 16. golden -- tests/golden/gwtc_v1.bin and szjx_lorenzo.bin decode on the
@@ -169,6 +197,11 @@ KERNELS = {  # counter name -> (source, TPU kernel it replaces, __global__ name 
     "huffman_decode": ("src/repro_torch/csrc/huffman_decode.cu",
                        "src/repro/kernels/huffman_decode.py:106",
                        "huffman_decode_probe_kernel"),
+    # no Pallas kernel: the reference's host bit walk of a legacy stream;
+    # several kernels a launch, so it is timed with CUDA events
+    "huffman_legacy": ("src/repro_torch/csrc/huffman_legacy.cu",
+                       "src/repro/sz/entropy.py:467 (HuffmanCodec.decode_bitwalk, host)",
+                       "square_kernel"),
     "group_hist": ("src/repro_torch/csrc/group_hist.cu",
                    "src/repro/kernels/group_hist.py:73", "group_hist_kernel"),
     "enhancer_fused": ("src/repro_torch/csrc/enhancer_fused.cu",
@@ -184,7 +217,12 @@ INTERP_KERNELS = {  # needed on the interp paths: the coarse grid's Lorenzo kern
 }
 # the path whose launches each kernel's row reports
 LAUNCH_PATH = {**{k: "main" for k in KERNELS}, "lorenzo_quant": "szjx",
-               **{k: "gwlz" for k in GWLZ_KERNELS}}
+               "huffman_legacy": "legacy", **{k: "gwlz" for k in GWLZ_KERNELS}}
+LEGACY_KERNELS = ("symbol_hist", "huffman_encode", "huffman_legacy", "huffman_decode")
+SERVE_KERNELS = ("huffman_decode", "group_hist", "enhancer_fused")  # the storm's decodes
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_ROIS = 100, 3, 32  # the reference load test's floor
+SERVE_BUDGET = 256 << 20  # cache and admission budget: the CLI's defaults
+SERVE_WAIT_MS = 2.0  # the batcher's window: the CLI's default
 STREAM_BUDGET = 256 << 20  # the reference's default compress_stream mem_budget
 STREAM_EPOCHS = 5  # stream (e): the reservoir's 32 tiles, 2,048 slices of 64x64
 ENHANCE_RTOL = 1e-5  # |kernel - plain| <= ENHANCE_RTOL * (1 + max|plain|)
@@ -1358,10 +1396,315 @@ def cli_path(tmp: Path) -> None:
     bad = tmp / "cli_bad.gw"
     bad.write_bytes(bytes(blob))
     run("verify", str(bad), want=1)
-    emit({"phase": "cli", "input": "synthetic:temperature:64", "roi": roi,
+    # the CI serve smoke: every endpoint over HTTP, a repeated ROI from the cache
+    smoke = run("serve", f"nyx={tmp / 'cli_tiled.gw'}", f"dm={tmp / 'cli_stream.gw'}",
+                "--port", "0", "--smoke").strip().splitlines()[-1]
+    check(smoke.startswith("smoke ok"), f"cli serve --smoke printed {smoke!r}")
+    emit({"phase": "cli", "input": "synthetic:temperature:64", "roi": roi, "serve_smoke": smoke,
           "container_bytes": sizes, "flipped_lane_verify_exit": 1, "stream_line": streamed,
           "resume_without_stream_exit": 2,
           "seconds": {k: [round(v, 3) for v in vs] for k, vs in took.items()}})
+
+
+def legacy_inputs(blob: bytes, dev):
+    """The boundary pass's inputs for a legacy hf/hz blob: (args, kw, total
+    bits); the kernel and its plain version take the same ones."""
+    import struct
+    import zlib
+
+    from repro_torch.sz import entropy
+
+    n, tlen = struct.unpack_from("<QI", blob, 6)
+    codec = entropy._cached_codec(bytes(blob[18 : 18 + tlen]))
+    body = blob[18 + tlen :]
+    if blob[4:6] == b"hz":
+        body = zlib.decompress(body)
+    (total,) = struct.unpack_from("<Q", body, 0)
+    tabs = codec._tables_on(dev)
+    words = entropy._stream_words(body[8:], 0, None, dev)
+    return ((words, tabs["cw_map"], tabs["len_sorted"]),
+            dict(n_symbols=n, chunk_size=entropy.DEFAULT_CHUNK), total)
+
+
+def legacy_row(rows: dict, par: Parity, blob: bytes, case: str, dev) -> None:
+    """Parity and timing of the boundary pass on one legacy blob (CUDA
+    events around each launch: a launch is several kernels); the bound is
+    the stream's words read and the offsets written over the HBM rate, and
+    one operation a symbol."""
+    from repro_torch.kernels import huffman_legacy, ref
+
+    args, kw, total = legacy_inputs(blob, dev)
+    got = huffman_legacy.huffman_legacy_bounds(*args, **kw)
+    par.compare("huffman_legacy", case, got, ref.huffman_legacy_bounds_ref(*args, **kw))
+    check(int(got[-1]) == total, f"huffman_legacy [{case}] ends at {int(got[-1])}, not {total}")
+    nbytes = 4 * -(-total // 32) + 8 * got.numel()
+    time_row(rows, "huffman_legacy", lambda: huffman_legacy.huffman_legacy_bounds(*args, **kw),
+             lambda: ref.huffman_legacy_bounds_ref(*args, **kw), nbytes, kw["n_symbols"],
+             reps=20, plain_reps=2, timer=launch_events_ms)
+    rows["huffman_legacy"]["shape_note"] = (f"{kw['n_symbols']} symbols, {total} bits, "
+                                            f"{got.numel() - 1} chunks, {blob[4:6].decode()}")
+
+
+def legacy_path(par: Parity, x_np, art) -> tuple[dict, dict]:
+    """The entropy codec's read leftovers on the card: legacy hf/hz blobs of
+    the main field's 512 lane codes and of one whole 128^3 stream (bytes
+    equal to the CPU route's on a stride of lanes and on the stream), their
+    decode (boundary pass, then the chunked decode), range reads equal to
+    the full decode's slice; the boundary pass held against its plain
+    version on edge cases and timed.  Returns (launches, kernel rows)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import huffman_legacy, lorenzo_quant, ops, ref
+    from repro_torch.sz import entropy, tiled
+
+    dev = torch.device("cuda")
+    x = torch.from_numpy(x_np).to(dev)
+    tiles = tiled.split_tiles(tiled.pad_to_tiles(x, TILE), TILE).contiguous()
+    lanes = lorenzo_quant.lorenzo_quant_tiles(tiles, art.eb_abs).reshape(tiles.shape[0], -1)
+    stream = lorenzo_quant.lorenzo_quant(x[:128, :128, :128].contiguous(),
+                                         art.eb_abs).reshape(-1)
+    del x, tiles
+    L, n = lanes.shape
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    lane_blobs = [entropy.encode_codes_legacy(lanes[i], BACKEND) for i in range(L)]
+    stream_blob = entropy.encode_codes_legacy(stream, "huffman")
+    t1 = time.perf_counter()
+    bad = [i for i, b in enumerate(lane_blobs)
+           if not torch.equal(entropy.decode_codes(b, (n,), device=dev), lanes[i])]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(torch.equal(entropy.decode_codes(stream_blob, (stream.numel(),), device=dev), stream),
+          "the legacy 128^3 stream decoded wrong on the card")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    check(not bad, f"legacy lanes {bad[:8]} decoded wrong on the card")
+    check(all(launches[k] == L + 1 for k in LEGACY_KERNELS),
+          f"the legacy path did not launch each kernel once a blob: {launches}")
+    stride = 8
+    check(all(entropy.encode_codes_legacy(lanes[i].cpu(), BACKEND) == lane_blobs[i]
+              for i in range(0, L, stride)), "card and CPU legacy lane bytes differ")
+    check(entropy.encode_codes_legacy(stream.cpu(), "huffman") == stream_blob,
+          "card and CPU legacy stream bytes differ")
+    median = int(np.argsort([len(b) for b in art.tile_blobs])[L // 2])
+    check(torch.equal(entropy.decode_codes(art.tile_blobs[median], (n,), device=dev),
+                      lanes[median]), "the container's lane holds other codes")
+    ranges = {"lane_hZ": art.tile_blobs[median], "lane_hz": lane_blobs[median],
+              "stream_hc": entropy.encode_codes(stream, "huffman"), "stream_hf": stream_blob}
+    spans = {}
+    for name, blob in ranges.items():
+        full = entropy.decode_codes(blob, (-1,), device=dev)
+        m = full.numel()
+        cuts = [(0, m), (0, 0), (255, 257), (256, 512), (m - 1, m), (1000, min(m, 99_999)),
+                (m // 3, m // 3 + 77)]
+        for lo, hi in cuts:
+            check(torch.equal(entropy.decode_codes_range(blob, lo, hi, device=dev),
+                              full[lo:hi]), f"range [{lo}, {hi}) of {name} != the slice")
+        spans[name] = len(cuts)
+    rows = {}
+    rng = np.random.default_rng(7)
+    sizes = [2**i for i in range(18, 0, -1)] + [1, 1]
+    escape = np.repeat(np.arange(len(sizes), dtype=np.int32), sizes)
+    rng.shuffle(escape)
+    edges = {"escape_codes": escape,
+             "wide_alphabet": rng.integers(-5000, 5000, 300_000).astype(np.int32),
+             "one_symbol": np.full(1000, -3, np.int32),
+             "short": rng.integers(-3, 4, 100).astype(np.int32)}
+    edge_bits = {}
+    for case, codes in edges.items():
+        blob = entropy.encode_codes_legacy(torch.from_numpy(codes).to(dev), "huffman")
+        args, kw, total = legacy_inputs(blob, dev)
+        par.compare("huffman_legacy", case, huffman_legacy.huffman_legacy_bounds(*args, **kw),
+                    ref.huffman_legacy_bounds_ref(*args, **kw))
+        edge_bits[case] = total
+    legacy_row(rows, par, lane_blobs[median], "main_lane", dev)
+    srows = {}
+    legacy_row(srows, par, stream_blob, "stream_128^3", dev)
+    s_row = srows["huffman_legacy"]
+    rows["huffman_legacy"]["stream"] = {"shape": s_row.pop("shape_note"), **s_row}
+    r = rows["huffman_legacy"]
+    emit({"phase": "legacy", "lanes": L, "lane_symbols": n, "stream_symbols": stream.numel(),
+          "backends": {"lanes": BACKEND, "stream": "huffman"},
+          "encode_s": t1 - t0, "lane_decode_s": t2 - t1, "stream_decode_s": t3 - t2,
+          "lane_blob_bytes": sum(len(b) for b in lane_blobs),
+          "stream_blob_bytes": len(stream_blob), "cpu_bytes_checked_lanes": len(range(0, L, stride)),
+          "range_cuts": spans, "edge_case_bits": edge_bits,
+          "bounds_ms": {"lane": r["ms"], "stream": r["stream"]["ms"]},
+          "bound_ms": {"lane": r["bound_ms"], "stream": r["stream"]["bound_ms"]},
+          "launches": launches})
+    return launches, rows
+
+
+def serve_path(tmp: Path, main_art, gw_art, szjx_file: Path) -> dict:
+    """The serving daemon on the card: one RegionServer on 127.0.0.1:0 over
+    the enhanced tiled gwlz volume, the main Lorenzo volume and the szjx
+    file, in one pool sharing one cache; a storm of SERVE_CLIENTS client
+    threads x SERVE_REQUESTS requests over a seeded pool of SERVE_ROIS
+    overlapping ROIs (1-8 lanes inside one 4x4x4-lane block; every eighth a
+    monolithic crop).  Checks: every body equals np.save of the crop of an
+    eager full decode through a separate handle; the shared cache's hit rate
+    >= 0.5; a repeat with the ETag gets 304 and no decode; an in-process
+    hammer of single-lane reads makes at least 2x fewer decode dispatches
+    with the batcher than without.  Returns the storm's launches."""
+    import hashlib
+    import io
+    import threading
+    from urllib.request import urlopen
+
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.exec.cache import DecodeBatcher, TileCache
+    from repro_torch.kernels import ops
+    from repro_torch.serve import RegionServer, fetch_json, fetch_region
+    from repro_torch.sz import tiled
+
+    files = {"gwlz": tmp / "serve_gwlz.gwtc", "main": tmp / "serve_main.gwtc", "szjx": szjx_file}
+    files["gwlz"].write_bytes(gw_art.to_bytes())
+    files["main"].write_bytes(main_art.to_bytes())
+    full = {}
+    for name, f in files.items():
+        with api.open(f) as v:
+            full[name] = np.asarray(v).copy()
+    rng = np.random.default_rng(0)
+    grid = [s // t for s, t in zip(SHAPE, TILE)]
+    block = [4 * int(rng.integers(0, g // 4)) for g in grid]  # lanes, a 4x4x4 block's origin
+    rois = []
+    for j in range(SERVE_ROIS):
+        name = "szjx" if j % 8 == 7 else ("gwlz", "main")[j % 2]
+        bounds = []
+        for d, t in enumerate(TILE):
+            ext = int(rng.integers(1, 3))
+            first = block[d] + int(rng.integers(0, 5 - ext))
+            lo = first * t + int(rng.integers(0, t))
+            last_lo = (first + ext - 1) * t
+            hi = int(rng.integers(max(lo, last_lo) + 1, last_lo + t + 1))
+            bounds.append((lo, hi))
+        rois.append((name, ",".join(f"{a}:{b}" for a, b in bounds),
+                     tuple(slice(a, b) for a, b in bounds)))
+    want = []
+    for name, _spec, sl in rois:
+        buf = io.BytesIO()
+        np.save(buf, np.ascontiguousarray(full[name][sl]))
+        want.append(hashlib.sha256(buf.getvalue()).hexdigest())
+
+    with RegionServer(files, cache_bytes=SERVE_BUDGET, mem_budget=SERVE_BUDGET,
+                      batch_wait_ms=SERVE_WAIT_MS) as srv:
+        results, errors, lock = [], [], threading.Lock()
+        gate = threading.Barrier(SERVE_CLIENTS)
+
+        def client(c: int) -> None:
+            picks = np.random.default_rng(1000 + c).integers(0, SERVE_ROIS, SERVE_REQUESTS)
+            try:
+                gate.wait()
+                for j in picks:
+                    name, spec, _sl = rois[j]
+                    t = time.perf_counter()
+                    with urlopen(f"{srv.url}/v/{name}/region?roi={spec}", timeout=300) as r:
+                        body = r.read()
+                    ms = (time.perf_counter() - t) * 1e3
+                    digest = hashlib.sha256(body).hexdigest()
+                    with lock:
+                        results.append((int(j), digest, ms))
+            except Exception as e:  # surfaced below
+                with lock:
+                    errors.append(repr(e))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tiled.reset_dispatch_stats()
+        ops.reset_launches()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        m = fetch_json(srv.url, "/metrics")
+        check(not errors, f"serve: {len(errors)} requests failed: {errors[:3]}")
+        check(len(results) == SERVE_CLIENTS * SERVE_REQUESTS, "serve: requests went missing")
+        wrong = sorted({j for j, digest, _ms in results if digest != want[j]})
+        check(not wrong, f"serve: ROIs {wrong} were served bytes other than the eager crop")
+        check(m["cache"]["hit_rate"] >= 0.5, f"serve: hit rate {m['cache']['hit_rate']} < 0.5")
+        check(all(launches[k] > 0 for k in SERVE_KERNELS), f"serve: a kernel never ran: {launches}")
+        check(m["errors"] == 0 and m["admission"]["rejected"] == 0, "serve: errors or 503s")
+        # ETag revalidation: 304, and no decode work at all
+        name, spec, _sl = rois[0]
+        _arr, meta = fetch_region(srv.url, name, spec)
+        before = (tiled.dispatch_stats()["dispatches"], dict(ops.LAUNCHES))
+        again, meta2 = fetch_region(srv.url, name, spec, etag=meta["etag"])
+        torch.cuda.synchronize()
+        check(again is None and meta2["etag"] == meta["etag"], "serve: no 304 on the ETag")
+        check((tiled.dispatch_stats()["dispatches"], dict(ops.LAUNCHES)) == before,
+              "serve: a 304 ran decode work")
+        lat = np.array([ms for _j, _d, ms in results])
+        by_volume = {v: np.array([ms for j, _d, ms in results if rois[j][0] == v])
+                     for v in files}
+
+    # the in-process hammer: single-lane reads, batcher off then on
+    art = tiled.TiledCompressed.from_bytes(files["main"].read_bytes())
+    lane_rois = [tuple(slice(a * t, (a + 1) * t) for a, t in zip(pos, TILE))
+                 for pos in np.ndindex(*grid)]
+    hammer = {}
+    for mode in ("off", "on"):
+        batcher = None if mode == "off" else DecodeBatcher(max_wait_ms=20.0,
+                                                           max_batch_tiles=4096)
+        vol = api.CompressedVolume(art, tile_cache=TileCache(SERVE_BUDGET), cache_ns="cmp",
+                                   decode_batcher=batcher)
+        bad = []
+        gate = threading.Barrier(SERVE_CLIENTS)
+
+        def reader(i: int) -> None:
+            roi = lane_rois[i % len(lane_rois)]
+            gate.wait()
+            if not np.array_equal(vol[roi], full["main"][roi]):
+                with lock:
+                    bad.append(i)
+
+        before = tiled.dispatch_stats()["dispatches"]
+        threads = [threading.Thread(target=reader, args=(i,)) for i in range(SERVE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        hammer[mode] = {"dispatches": tiled.dispatch_stats()["dispatches"] - before,
+                        "mismatches": len(bad)}
+        if batcher is not None:
+            hammer[mode]["batcher"] = batcher.info()
+        vol.close()
+        check(not bad, f"hammer ({mode}): reads {bad[:5]} differ from the eager decode")
+    off, on = hammer["off"]["dispatches"], hammer["on"]["dispatches"]
+    check(on * 2 <= off, f"the batcher cut dispatches only {off} -> {on}; need >= 2x")
+    b = m["batcher"]
+    emit({"phase": "serve", "volumes": {k: str(v.name) for k, v in files.items()},
+          "clients": SERVE_CLIENTS, "requests_each": SERVE_REQUESTS, "rois": SERVE_ROIS,
+          "roi_block_lanes": block, "cache_bytes": SERVE_BUDGET, "mem_budget": SERVE_BUDGET,
+          "batch_wait_ms": SERVE_WAIT_MS, "wall_s": wall,
+          "req_per_s": len(results) / wall,
+          "client_ms": {"p50": float(np.percentile(lat, 50)),
+                        "p99": float(np.percentile(lat, 99)), "max": float(lat.max())},
+          "client_ms_by_volume": {v: {"requests": int(a.size),
+                                      "p50": float(np.percentile(a, 50)),
+                                      "p99": float(np.percentile(a, 99))}
+                                  for v, a in by_volume.items() if a.size},
+          "server_ms": m["latency_ms"], "hit_rate": m["cache"]["hit_rate"],
+          "cache": m["cache"], "batcher": {k: b[k] for k in ("submits", "dispatches",
+                                                             "coalesced_submits",
+                                                             "peak_pending_tiles",
+                                                             "batch_hist")},
+          "admission": m["admission"], "decode": m["decode"], "lanes_served": m["lanes_served"],
+          "storm_launches": launches, "device_peak_bytes": peak,
+          "etag_304_without_decode": True, "hammer": hammer,
+          "dispatch_reduction": off / on if on else None})
+    return launches
 
 
 def time_row(rows, name, kern, plain, nbytes, nops, library=None, reps=200, plain_reps=20,
@@ -1604,7 +1947,7 @@ def parent_row(rows: dict, name: str, parent, x, eb, want) -> None:
 
 
 def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
-                mono) -> list[dict]:
+                mono, legacy_rows: dict) -> list[dict]:
     """Parity and timing of each kernel on its path's own shapes
     (``path_launches``: path -> launches of its run); the enhancer's
     kernels on both gwlz runs (``gw``: phase -> (art, model, launches)), the
@@ -1612,7 +1955,8 @@ def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
     (``sz_art``); symbol_hist and huffman_encode over all 512 lanes in one
     launch each; and symbol_hist, huffman_encode, huffman_decode and
     enhancer_fused also at the monolithic shapes (``mono``: the szjx stream;
-    the gwlz_mono (art, model, launches))."""
+    the gwlz_mono (art, model, launches)); ``legacy_rows``: the boundary
+    pass's row, measured in the legacy phase."""
     import numpy as np
     import torch
 
@@ -1625,7 +1969,7 @@ def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
     eb = art.eb_abs
     sizes = [len(b) for b in art.tile_blobs]
     lane = int(np.argsort(sizes)[len(sizes) // 2])  # the median-size lane
-    rows = {}
+    rows = dict(legacy_rows)
 
     row = functools.partial(time_row, rows)
 
@@ -1730,7 +2074,7 @@ def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
                     "launches_path": path,
                     "launches_by_path": {p: ls[name] for p, ls in path_launches.items()},
                     **({"tolerance": par.tol[name]} if par.tol[name] else {}),
-                    **{k: r[k] for k in ("flop", "g1", "all_groups", "mono", "parent")
+                    **{k: r[k] for k in ("flop", "g1", "all_groups", "mono", "parent", "stream")
                        if k in r}})
     return out
 
@@ -1809,6 +2153,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     art, main_id, launches = main_path(x_np)
+    legacy_launches, legacy_rows = legacy_path(par, x_np, art)
     gw = {"gwlz": gwlz_path(x_np, "gwlz")}
     t0 = time.perf_counter()
     vx = nyx_like_field(SHAPE, GWLZ_FIELDS["gwlz_all_groups"], seed=0)
@@ -1825,11 +2170,13 @@ def main() -> int:
         mono = gwlz_mono_path(x_np, Path(tmp))
         gw_interp = gwlz_mono_path(x_np, Path(tmp), "gwlz_interp", "interp")
         big_launches = bigstream_path(Path(tmp))
+        serve_launches = serve_path(Path(tmp), art, gw["gwlz"][0], Path(tmp) / "field.szjx")
         cli_path(Path(tmp))
     path_launches = {"main": launches, "gwlz": gw["gwlz"][2], "szjx": sz_launches,
                      "interp": interp_launches, "interp_tiled": interp_tiled_launches,
                      "gwlz_mono": mono[2], "gwlz_interp": gw_interp[2],
-                     "bigstream": big_launches, "stream": stream_launches}
+                     "bigstream": big_launches, "stream": stream_launches,
+                     "legacy": legacy_launches, "serve": serve_launches}
     check(all(ls["huffman_decode"] > 0 for ls in path_launches.values()),
           "huffman_decode missed a path")
     check(all(ls["enhancer_fused"] > 0 for ls in (gw["gwlz"][2], gw["gwlz_all_groups"][2],
@@ -1837,7 +2184,7 @@ def main() -> int:
           "enhancer_fused missed a path")
     del gw_interp
     with torch.no_grad():  # the model's parameters must not build autograd graphs here
-        rows = kernel_rows(par, x_np, art, path_launches, gw, sz_art, mono)
+        rows = kernel_rows(par, x_np, art, path_launches, gw, sz_art, mono, legacy_rows)
     cpu_vs_card(x_np)
     golden()
 

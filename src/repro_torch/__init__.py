@@ -13,7 +13,10 @@ has one counterpart to be held against:
   (``GWLZ`` on either container, model blob), and ``convert`` (weights from
   the reference's arrays),
 * ``optim/``   -- the trainer's AdamW (float32 moments) and step-decay schedule,
-* ``exec/``    -- the GWTC container writer and the decoded-tile cache,
+* ``exec/``    -- the streaming executor, the GWTC container writer, the
+  decoded-tile cache and the cross-request decode batcher,
+* ``serve``    -- the multi-tenant region-decode daemon (``VolumePool``,
+  admission, ETags, ``/metrics``) behind ``python -m repro_torch.cli serve``,
 * ``kernels/`` -- hand-written CUDA kernels (``csrc/``), their plain PyTorch
   versions (``kernels/ref.py``) and the device dispatchers (``kernels/ops.py``),
 * ``data/``    -- synthetic Nyx-like fields.

@@ -176,15 +176,20 @@ class CompressedVolume:
     ``tile_cache`` injects a SHARED :class:`TileCache`: the handle keys its
     entries under ``cache_ns`` (default: a fresh process-unique id), never
     clears entries it does not own, and on :meth:`close` drops only its own
-    namespace.  Decoding runs on ``device`` (None: the CUDA device)."""
+    namespace.  ``decode_batcher`` (a :class:`DecodeBatcher`, which the
+    serving pool injects) decodes the lanes a read claims in rounds shared
+    with concurrent reads of this volume.  Decoding runs on ``device``
+    (None: the CUDA device)."""
 
     def __init__(self, artifact, *, stats: GWLZStats | None = None,
                  pipeline: GWLZ | None = None, cache_bytes: int | None = None,
-                 tile_cache: TileCache | None = None, cache_ns=None, device=None):
+                 tile_cache: TileCache | None = None, cache_ns=None, decode_batcher=None,
+                 device=None):
         self.device = resolve_device(device)
         self.artifact = artifact
         self.train_stats = stats  # GWLZStats from enhanced compression, or None
         self.pipeline = pipeline or GWLZ()
+        self.decode_batcher = decode_batcher
         self._cache: np.ndarray | None = None  # one-shot full-decode cache
         tiles_total = artifact.n_tiles if isinstance(artifact, TiledCompressed) else 1
         self.stats = DecodeStats(tiles_total, train=stats)
@@ -285,7 +290,9 @@ class CompressedVolume:
         cut from it).  Copy to mutate."""
         self._ensure_open()
         if self._cache is None:
-            self._cache = self.pipeline.decode(self.artifact, device=self.device).cpu().numpy()
+            with torch.no_grad():  # grad mode is per thread; a decode needs no graph
+                dec = self.pipeline.decode(self.artifact, device=self.device)
+            self._cache = dec.cpu().numpy()
             self._cache.setflags(write=False)
             self.stats.record(decoded=self.stats.tiles_total)
             self._sync_quarantine()
@@ -302,9 +309,10 @@ class CompressedVolume:
         """Final (enhanced) tile values for the given lane ids, through the
         size-capped (possibly shared) LRU with single-flight coalescing:
         cached tiles return as they are, lanes nobody is decoding are claimed
-        and decode in ONE batched pipeline call, and lanes another thread
-        already claimed are awaited.  An abandoned claim (the owner's decode
-        raised) wakes the waiters, one of which re-claims and retries."""
+        and decode in ONE batched pipeline call (:meth:`_decode_claimed`),
+        and lanes another thread already claimed are awaited.  An abandoned
+        claim (the owner's decode raised) wakes the waiters, one of which
+        re-claims and retries."""
         cache, ns = self.tile_cache, self.cache_ns
         found: dict[int, np.ndarray] = {}
         decoded = 0
@@ -314,15 +322,13 @@ class CompressedVolume:
             for (_n, i), v in got.items():
                 found[i] = v
             if mine:
-                mine_ids = [k[1] for k in mine]
                 try:
-                    dec = self.pipeline.decode_tiles(self.artifact, mine_ids,
-                                                     device=self.device).cpu().numpy()
+                    got = self._decode_claimed([k[1] for k in mine])
                 except BaseException:
                     cache.abandon(mine)
                     raise
-                for j, k in enumerate(mine):
-                    tile = np.ascontiguousarray(dec[j])
+                for k in mine:
+                    tile = got[k[1]]
                     cache.fulfill(k, tile)
                     found[k[1]] = tile
                 decoded += len(mine)
@@ -336,6 +342,23 @@ class CompressedVolume:
         self.stats.record(decoded=decoded, hits=len(ids) - decoded)
         self._sync_quarantine()
         return np.stack([found[i] for i in ids])
+
+    def _decode_claimed(self, mine_ids: list[int]) -> dict[int, np.ndarray]:
+        """Decode lanes this read owns claims for: one pipeline call, or with
+        a ``decode_batcher`` a round shared with concurrent reads of this
+        volume (group key: the cache namespace).  The round's leader decodes
+        on this handle's device, on its own thread, and hands out host
+        tiles; its error reaches every submitter of the round."""
+
+        def decode(ids: list[int]) -> dict[int, np.ndarray]:
+            with torch.no_grad():  # grad mode is per thread; a decode needs no graph
+                dec = self.pipeline.decode_tiles(self.artifact, ids, device=self.device)
+            dec = dec.cpu().numpy()
+            return {i: np.ascontiguousarray(dec[j]) for j, i in enumerate(ids)}
+
+        if self.decode_batcher is None:
+            return decode(mine_ids)
+        return self.decode_batcher.submit(self.cache_ns, mine_ids, decode)
 
     def __array__(self, dtype=None, copy=None) -> np.ndarray:
         arr = self.decode()
@@ -489,19 +512,21 @@ def compress_stream(source, out, *, eb: float | None = None, abs_eb: float | Non
 
 def from_bytes(blob, *, pipeline: GWLZ | None = None, cache_bytes: int | None = None,
                tile_cache: TileCache | None = None, cache_ns=None, verify: str = "lazy",
-               on_corrupt: str = "raise", fill_value: float = 0.0,
+               on_corrupt: str = "raise", fill_value: float = 0.0, decode_batcher=None,
                device=None) -> CompressedVolume:
     """Sniff the envelope magic and build the handle (``SZJX``/``GWTC``).
     ``blob`` may be bytes or any buffer (a memoryview over an mmap parses
     lazily: tiled lanes stay on disk until a decode touches them).
     ``verify`` / ``on_corrupt`` / ``fill_value`` install the integrity
-    policy described under :func:`open`."""
+    policy, ``tile_cache`` / ``cache_ns`` / ``decode_batcher`` the shared
+    decode state, described under :func:`open`."""
     device = resolve_device(device)
     if A.sniff_magic(blob) == GWDS_MAGIC:
         raise NotImplementedError(_GWDS_TODO)
     art = _apply_verify(A.from_bytes(blob), verify, on_corrupt, fill_value)
     return CompressedVolume(art, pipeline=pipeline, cache_bytes=cache_bytes,
-                            tile_cache=tile_cache, cache_ns=cache_ns, device=device)
+                            tile_cache=tile_cache, cache_ns=cache_ns,
+                            decode_batcher=decode_batcher, device=device)
 
 
 def save(path: str | os.PathLike, obj) -> int:
@@ -525,7 +550,7 @@ def save(path: str | os.PathLike, obj) -> int:
 def open(path: str | os.PathLike, *, pipeline: GWLZ | None = None, mmap: bool = True,
          cache_bytes: int | None = None, tile_cache: TileCache | None = None,
          cache_ns=None, verify: str = "lazy", on_corrupt: str = "raise",
-         fill_value: float = 0.0, device=None) -> CompressedVolume:
+         fill_value: float = 0.0, decode_batcher=None, device=None) -> CompressedVolume:
     """Open a compressed file (``SZJX`` or ``GWTC``; an attached GWLZ model
     is applied on decode), sniffing the envelope to pick the decoder.
 
@@ -534,7 +559,10 @@ def open(path: str | os.PathLike, *, pipeline: GWLZ | None = None, mmap: bool = 
     ``mmap=False`` reads it whole.  ``cache_bytes`` caps the handle's
     decoded-tile cache (default ``REPRO_TILE_CACHE_BYTES`` or 256 MiB; 0
     disables it), or ``tile_cache`` injects a shared one keyed under
-    ``cache_ns``.
+    ``cache_ns`` (the serving pool's mode: closing such a handle evicts only
+    its namespace).  ``decode_batcher`` (an
+    :class:`~repro_torch.exec.cache.DecodeBatcher`) coalesces the lane
+    decodes of concurrent region reads into shared rounds.
 
     Integrity: structural damage raises
     :class:`~repro_torch.errors.CorruptContainerError` here.  ``verify`` sets
@@ -553,7 +581,7 @@ def open(path: str | os.PathLike, *, pipeline: GWLZ | None = None, mmap: bool = 
             mm = None  # empty or unmappable file: read it whole
     kw = dict(pipeline=pipeline, cache_bytes=cache_bytes, tile_cache=tile_cache,
               cache_ns=cache_ns, verify=verify, on_corrupt=on_corrupt,
-              fill_value=fill_value, device=device)
+              fill_value=fill_value, decode_batcher=decode_batcher, device=device)
     if mm is None:
         with f:
             blob = f.read()

@@ -10,6 +10,10 @@
     python -m repro_torch.cli info       PATH
     python -m repro_torch.cli region     PATH --roi "8:40,:,16:32" [--out OUT.npy]
     python -m repro_torch.cli verify     PATH
+    python -m repro_torch.cli serve      [NAME=]PATH ... [--port 8177]
+                              [--cache-bytes 256M] [--mem-budget 256M]
+                              [--on-corrupt raise|quarantine] [--batch-wait-ms 2]
+                              [--no-batcher] [--smoke]
 
 ``compress IN`` takes a ``.npy`` volume, or ``synthetic:<field>[:<side>]``
 (e.g. ``synthetic:temperature:24``) for a generated Nyx-like field (seed 1,
@@ -33,8 +37,12 @@ plain PyTorch versions).
 journal (``<output>.journal``), and ``--retries`` sets the attempts per
 batch for transient faults.
 
+``serve`` runs the multi-tenant region-decode daemon (``repro_torch.serve``)
+over the named volumes behind one shared tile cache, decoding on
+``--device``; ``--smoke`` exercises every endpoint over HTTP and exits.
+
 Not ported yet: GWDS datasets and ``--field`` (ROADMAP.md Queue 1 item 9),
-and the ``serve``/``lint`` commands.
+and the ``lint`` command.
 
 Exit codes are uniform across subcommands: **0** success, **1** integrity
 failure (corrupt container / failed CRC), **2** usage error (bad
@@ -43,6 +51,7 @@ arguments, missing files, invalid ROI, no CUDA device, a part not ported).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -255,6 +264,80 @@ def cmd_verify(args) -> int:
     return EXIT_OK
 
 
+def cmd_serve(args) -> int:
+    from repro_torch import serve as _serve
+
+    volumes: dict[str, str] = {}
+    for spec in args.volumes:
+        name, sep, path = spec.partition("=")
+        if not sep:  # default name: the file stem ("nyx.gwtc" -> "nyx")
+            path = spec
+            name = os.path.splitext(os.path.basename(path))[0]
+        if not name:
+            raise _fail("serve", f"empty volume name in {spec!r}")
+        if name in volumes:
+            raise _fail("serve", f"duplicate volume name {name!r} "
+                                 "(use NAME=PATH to disambiguate)")
+        volumes[name] = path
+    try:
+        cache_bytes = parse_size(args.cache_bytes)
+        mem_budget = parse_size(args.mem_budget)
+    except ValueError as e:
+        raise _fail("serve", e) from None
+    device = _device(args, "serve")
+    try:
+        server = _serve.RegionServer(
+            volumes, host=args.host, port=args.port, cache_bytes=cache_bytes,
+            mem_budget=mem_budget, max_queue=args.max_queue, on_corrupt=args.on_corrupt,
+            batch_wait_ms=None if args.no_batcher else args.batch_wait_ms, device=device)
+    except OSError as e:
+        raise _fail("serve", f"cannot start: {e.strerror or e}") from None
+    except api.IntegrityError as e:
+        print(f"CORRUPT: {e}", file=sys.stderr)
+        return EXIT_INTEGRITY
+    except NotImplementedError as e:
+        raise _fail("serve", e) from None
+    with server:
+        print(f"serving {sorted(server.pool.names)} on {server.url} "
+              f"(cache {cache_bytes >> 20} MiB, budget {mem_budget >> 20} MiB, "
+              f"device {device})", flush=True)
+        if args.smoke:
+            return _serve_smoke(server)
+        try:
+            server._thread.join()
+        except KeyboardInterrupt:
+            print("shutting down", file=sys.stderr)
+        return EXIT_OK
+
+
+def _serve_smoke(server) -> int:
+    """--smoke: exercise every endpoint over real HTTP from this process (a
+    repeated ROI must be served from the shared cache), then exit."""
+    from repro_torch.serve import fetch_json, fetch_region
+
+    url = server.url
+    assert fetch_json(url, "/healthz")["status"] == "ok"
+    name = sorted(server.pool.names)[0]
+    info = fetch_json(url, f"/v/{name}/info")
+    hi = min(8, info["shape"][0])
+    roi = f"0:{hi}" + ",:" * (len(info["shape"]) - 1)
+    a, _meta1 = fetch_region(url, name, roi)
+    b, meta2 = fetch_region(url, name, roi)  # identical ROI: the cache must hit
+    if not np.array_equal(a, b):
+        print("smoke: repeated ROI decoded differently", file=sys.stderr)
+        return EXIT_INTEGRITY
+    m = fetch_json(url, "/metrics")
+    hit_rate = m["cache"]["hit_rate"]
+    if not hit_rate > 0:
+        print(f"smoke: expected cache hits on a repeated ROI, got {m['cache']}",
+              file=sys.stderr)
+        return EXIT_INTEGRITY
+    print(f"smoke ok: {meta2['lanes']}/{meta2['lanes_total']} lanes, hit_rate "
+          f"{hit_rate:.2f}, p99 {m['latency_ms'].get('p99', 0):.1f} ms over "
+          f"{m['requests']} requests")
+    return EXIT_OK
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="repro_torch.cli", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -309,6 +392,31 @@ def main(argv: list[str] | None = None) -> int:
                                       "(structure + metadata + lane CRCs)")
     v.add_argument("path")
     v.set_defaults(fn=cmd_verify)
+
+    s = sub.add_parser("serve", help="multi-tenant region-decode daemon (docs/SERVING.md)")
+    s.add_argument("volumes", nargs="+", metavar="[NAME=]PATH",
+                   help="volumes to serve (default name: the file stem)")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8177,
+                   help="listen port (0 binds an ephemeral port)")
+    s.add_argument("--cache-bytes", default="256M",
+                   help="shared decoded-tile cache budget, e.g. 64M / 1G")
+    s.add_argument("--mem-budget", default="256M",
+                   help="admission-control working-set budget")
+    s.add_argument("--max-queue", type=int, default=1024,
+                   help="max requests waiting on admission before 503")
+    s.add_argument("--on-corrupt", default="raise", choices=["raise", "quarantine"],
+                   help="per-lane CRC failure policy for served volumes")
+    s.add_argument("--batch-wait-ms", type=float, default=2.0,
+                   help="decode micro-batcher max wait: how long the first request of a "
+                        "round holds the decode open for concurrent requests to join")
+    s.add_argument("--no-batcher", action="store_true",
+                   help="disable cross-request decode batching (each request decodes "
+                        "its own claimed lanes)")
+    s.add_argument("--smoke", action="store_true",
+                   help="start, exercise every endpoint over HTTP (asserting cache hits "
+                        "on a repeated ROI), then exit")
+    s.set_defaults(fn=cmd_serve)
 
     args = ap.parse_args(argv)
     if args.cmd == "compress" and (args.eb is None) == (args.abs_eb is None):

@@ -13,12 +13,13 @@ bounded-memory executor:
 * :mod:`repro_torch.exec.executor`: the streaming loop (the device stage of
   batch k+1 overlaps the host append of batch k),
 * :mod:`repro_torch.exec.cache`: the size-capped, thread-safe LRU tile
-  cache behind ``repro_torch.api.CompressedVolume`` region reads.
+  cache behind ``repro_torch.api.CompressedVolume`` region reads, and the
+  cross-request :class:`DecodeBatcher` of the serving daemon.
 
 The public entry point is :func:`repro_torch.api.compress_stream`.  The
 multi-field ``GWDSWriter`` waits for ROADMAP.md Queue 1 item 9.
 """
-from repro_torch.exec.cache import TileCache
+from repro_torch.exec.cache import DecodeBatcher, TileCache
 from repro_torch.exec.executor import StreamReport, stream_compress
 from repro_torch.exec.plan import StreamPlan, max_inflight_tiles, plan_stream, tile_working_bytes
 from repro_torch.exec.sources import ArraySource, IterSource, NpyFileSource, TileSource, as_source
@@ -26,6 +27,7 @@ from repro_torch.exec.writer import GWTCWriter, journal_path
 
 __all__ = [
     "ArraySource",
+    "DecodeBatcher",
     "GWTCWriter",
     "IterSource",
     "NpyFileSource",

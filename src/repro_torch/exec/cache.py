@@ -1,6 +1,5 @@
-"""Size-capped, thread-safe LRU cache of decoded tiles (port of the
-``TileCache`` of ``repro/exec/cache.py``; the ``DecodeBatcher`` there comes
-with the serving daemon, ROADMAP.md Queue 1 item 8).
+"""Size-capped, thread-safe LRU cache of decoded tiles and the cross-request
+decode micro-batcher (port of ``repro/exec/cache.py``).
 
 Backs ``repro_torch.api.CompressedVolume`` region reads: repeated or
 overlapping ROI decodes hit finished tiles instead of re-running entropy
@@ -18,10 +17,15 @@ concurrent readers that miss on the same key agree on ONE owner to decode
 it; everyone else blocks on the in-flight entry and receives the decoded
 tile directly -- even when the cache itself is too small to retain it -- so
 overlapping ROIs arriving together cost each lane exactly one decode.
+
+:class:`DecodeBatcher` layers above the claims: concurrent requests that own
+claimed lanes of one volume submit them to a shared round, and one leader
+decodes the union in one call (the serving daemon's batcher).
 """
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -200,3 +204,116 @@ class TileCache:
                     "misses": self._misses, "coalesced": self._coalesced,
                     "inflight": len(self._inflight),
                     "hit_rate": (self._hits / touched) if touched else 0.0}
+
+
+class _Round:
+    """One micro-batch round for a group: the ids accumulated so far, the
+    completion event, and the shared outcome (result dict or error)."""
+
+    __slots__ = ("ids", "done", "result", "error")
+
+    def __init__(self):
+        self.ids: list = []
+        self.done = threading.Event()
+        self.result: dict | None = None
+        self.error: BaseException | None = None
+
+
+class DecodeBatcher:
+    """Cross-request decode micro-batcher (continuous batching).
+
+    Concurrent region requests that each own a few claimed tiles of the same
+    volume would issue one device dispatch apiece; the batcher coalesces them:
+    the FIRST submitter for a group becomes the round's *leader*, waits up to
+    ``max_wait_ms`` for followers to append their tile ids, then decodes the
+    union in one call (one ``decode_lanes`` batch: nothing is padded or
+    bucketed, since eager PyTorch compiles nothing per batch size) and hands
+    every submitter its slice.
+    Followers that arrive after the leader drained the round start the next
+    round — there is no global tick, so an idle volume pays zero latency and
+    a busy one forms batches back-to-back.
+
+    This layers ABOVE the single-flight claim/fulfill protocol: submitters
+    only bring ids they already own claims for, so the batcher never sees a
+    duplicate decode across requests (dedup within a round is still applied
+    in case two submitters race the same abandoned claim).  The leader calls
+    ``decode_fn`` OUTSIDE the lock; it holds no cache locks while waiting, so
+    batching cannot deadlock against claim/fulfill.
+
+    ``max_batch_tiles`` wakes the leader early once enough work is pending —
+    the latency knob bounds the wait, the size knob bounds the batch."""
+
+    def __init__(self, *, max_wait_ms: float = 2.0, max_batch_tiles: int = 256):
+        self.max_wait_ms = float(max_wait_ms)
+        self.max_batch_tiles = int(max_batch_tiles)
+        self._cv = threading.Condition()
+        self._rounds: dict = {}  # guarded-by: _cv
+        self.submits = 0  # guarded-by: _cv
+        self.dispatches = 0  # guarded-by: _cv
+        self.coalesced_submits = 0  # guarded-by: _cv
+        self.pending_tiles = 0  # guarded-by: _cv
+        self.peak_pending_tiles = 0  # guarded-by: _cv
+        self.batch_hist: dict = {}  # guarded-by: _cv
+
+    def submit(self, group, lane_ids, decode_fn) -> dict:
+        """Decode ``lane_ids`` (for ``group``) via a shared round; returns
+        ``{lane_id: tile}`` for exactly the requested ids.
+
+        ``decode_fn(ids)`` must return ``{id: np.ndarray}`` for the union of
+        a round's ids; it runs once per round, on the leader's thread.  A
+        leader-side decode error propagates to every submitter in the round
+        (all their claims fail together — callers abandon and re-raise, the
+        single-flight protocol's normal error path)."""
+        lane_ids = list(lane_ids)
+        if not lane_ids:
+            return {}
+        deadline = None
+        with self._cv:
+            self.submits += 1
+            rnd = self._rounds.get(group)
+            leader = rnd is None
+            if leader:
+                rnd = self._rounds[group] = _Round()
+            else:
+                self.coalesced_submits += 1
+            rnd.ids.extend(lane_ids)
+            self.pending_tiles += len(lane_ids)
+            self.peak_pending_tiles = max(self.peak_pending_tiles,
+                                          self.pending_tiles)
+            self._cv.notify_all()
+            if leader:
+                deadline = time.monotonic() + self.max_wait_ms / 1e3
+                while (len(rnd.ids) < self.max_batch_tiles
+                       and (remaining := deadline - time.monotonic()) > 0):
+                    self._cv.wait(remaining)
+                # drain: later submits for this group start a fresh round
+                del self._rounds[group]
+                ids = list(dict.fromkeys(rnd.ids))
+                self.pending_tiles -= len(rnd.ids)
+                self.dispatches += 1
+                self.batch_hist[len(ids)] = self.batch_hist.get(len(ids), 0) + 1
+        if leader:
+            try:
+                rnd.result = decode_fn(ids)
+            except BaseException as e:
+                rnd.error = e
+                raise
+            finally:
+                rnd.done.set()
+        else:
+            rnd.done.wait()
+            if rnd.error is not None:
+                raise rnd.error
+        return {i: rnd.result[i] for i in lane_ids}
+
+    def info(self) -> dict:
+        """Snapshot for ``/metrics`` (histogram keys stringified for JSON)."""
+        with self._cv:
+            return {"submits": self.submits, "dispatches": self.dispatches,
+                    "coalesced_submits": self.coalesced_submits,
+                    "pending_tiles": self.pending_tiles,
+                    "peak_pending_tiles": self.peak_pending_tiles,
+                    "max_wait_ms": self.max_wait_ms,
+                    "max_batch_tiles": self.max_batch_tiles,
+                    "batch_hist": {str(k): v
+                                   for k, v in sorted(self.batch_hist.items())}}

@@ -11,8 +11,10 @@ contiguous row-major tile-id runs.  Two invariants matter:
   budget, keeping the tracked peak within it (asserted at <= 2x for
   safety against allocator slack).
 
-``bucketed_batch_tiles`` of the reference belongs to the serving daemon's
-bucketed dispatch (ROADMAP.md Queue 1 item 8).
+The reference's ``bucketed_batch_tiles`` has no counterpart: it prices the
+bucket-padded decode batches of ``dispatch_bucketed``, and the port's
+decode pads no batch (eager PyTorch compiles nothing per batch size), so
+the serving daemon prices lanes x :func:`tile_working_bytes`.
 """
 from __future__ import annotations
 

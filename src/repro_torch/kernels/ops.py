@@ -15,6 +15,7 @@ from repro_torch.kernels.enhancer_fused import enhancer_grouped, single_enhancer
 from repro_torch.kernels.group_hist import group_hist, symbol_hist_lanes
 from repro_torch.kernels.huffman_decode import huffman_decode_probe
 from repro_torch.kernels.huffman_encode import huffman_encode_pack
+from repro_torch.kernels.huffman_legacy import huffman_legacy_bounds
 from repro_torch.kernels.lorenzo_quant import lorenzo_quant, lorenzo_quant_tiles
 
 LAUNCHES = _build.LAUNCHES
@@ -105,6 +106,19 @@ def huffman_decode_op(words, offsets, counts, lut_count, lut_bits, lut_ids,
     if _on_cuda(words):
         return huffman_decode_probe(*args, chunk_size=chunk_size, k=k, lut=lut)
     return ref.huffman_decode_ref(*args, chunk_size=chunk_size, k=k)
+
+
+def huffman_legacy_bounds_op(words, cw_map, len_sorted, *, n_symbols: int,
+                             chunk_size: int) -> torch.Tensor:
+    """Chunk start bits of a legacy Huffman stream (no chunk table) that
+    starts at bit 0 of ``words``: int64 [ceil(n_symbols / chunk_size) + 1],
+    the last entry the bit after the last symbol.  The kernel takes chunk
+    sizes that are powers of two."""
+    args = (words, cw_map, len_sorted)
+    kw = dict(n_symbols=n_symbols, chunk_size=chunk_size)
+    if _on_cuda(words):
+        return huffman_legacy_bounds(*args, **kw)
+    return ref.huffman_legacy_bounds_ref(*args, **kw)
 
 
 def group_hist_op(x: torch.Tensor, edges: torch.Tensor):

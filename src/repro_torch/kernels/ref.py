@@ -169,6 +169,59 @@ def huffman_decode_ref(words, offsets, counts, lut_count, lut_bits, lut_ids,
     return out.view(C, chunk_size)
 
 
+def huffman_legacy_bounds_ref(words, cw_map, len_sorted, *, n_symbols: int,
+                              chunk_size: int) -> torch.Tensor:
+    """Chunk start bits of a legacy (chunk-table-free) Huffman stream that
+    starts at bit 0 of ``words`` ([NW] int32, big-endian): int64 [C + 1],
+    every chunk's first bit, then the bit after the last symbol.
+
+    Pointer doubling, as the kernel: the length of the code at every bit
+    position from the fixed-iteration binary search over the XOR-mapped
+    codewords (mid <= n-1 clamp); next(p) = p + length (positions past the
+    words sink at their end); next**chunk_size by repeated squaring
+    (``chunk_size`` a power of two); the chunk starts by C - 1 jumps and the
+    end by the last chunk's steps, walked on the host where the kernel walks
+    groups of 16 chunks on the device."""
+    if chunk_size < 1 or chunk_size & (chunk_size - 1):
+        raise ValueError(f"chunk_size must be a power of two, got {chunk_size}")
+    dev = words.device
+    C = -(-n_symbols // chunk_size)
+    if n_symbols == 0:
+        return torch.zeros(C + 1, dtype=torch.int64, device=dev)
+    n = cw_map.shape[0]
+    P = words.shape[0] * 32
+    w64 = words.to(torch.int64) & _M32
+    pos = torch.arange(P, dtype=torch.int64, device=dev)
+    wi, sh = pos >> 5, pos & 31
+    nxt = torch.cat([w64[1:], w64.new_zeros(1)])
+    w = ((w64[wi] << sh) | (nxt[wi] >> (32 - sh))) & _M32
+    wm = w ^ 0x80000000
+    wm = wm - ((wm >> 31) << 32)  # int32 value of the mapped window
+    del w, nxt, wi, sh
+    cw = cw_map.to(torch.int64)
+    low = torch.zeros(P, dtype=torch.int64, device=dev)
+    high = torch.full((P,), n, dtype=torch.int64, device=dev)
+    for _ in range(max(n.bit_length(), 1)):
+        mid = torch.clamp((low + high) >> 1, max=n - 1)
+        go = cw[mid] <= wm
+        low = torch.where(go, mid + 1, low)
+        high = torch.where(go, high, mid)
+    step = len_sorted.to(torch.int64)[(low - 1).clamp(min=0)]
+    one = torch.cat([torch.clamp(pos + step, max=P), pos.new_full((1,), P)])  # [P + 1]
+    del low, high, mid, go, step, wm, pos
+    jump = one
+    for _ in range(chunk_size.bit_length() - 1):
+        jump = jump[jump]
+    by_chunk, by_one = jump.cpu().numpy(), one.cpu().numpy()
+    starts = [0]
+    for _ in range(C - 1):
+        starts.append(int(by_chunk[starts[-1]]))
+    p = starts[-1]
+    for _ in range(n_symbols - (C - 1) * chunk_size):
+        p = int(by_one[p])
+    return torch.tensor(starts + [p], dtype=torch.int64, device=dev)
+
+
 def group_hist_ref(x: torch.Tensor, edges: torch.Tensor):
     """Group ids and their histogram: ids = clip(#{j < G : edges[j] <= x} - 1,
     0, G-1) (int32, ``x``'s shape) and hist [G] int32.  For sorted edges and

@@ -12,14 +12,20 @@ Split between host and device:
   codes, decode tables, the splice of packed chunks into one stream
   (``_splice_chunks``), zlib and the blob framing.
 
-Blobs are byte-identical to the reference's for the ``z2``/``z4`` (zlib)
-and ``hc``/``hZ`` (chunked Huffman) tags.  The per-symbol work never leaves
-the symbols' device: what the kernels cannot take is refused with a
-``ValueError`` on every device -- a table with a code longer than 32 bits
-(no encoder writes one) or a chunk larger than the encode kernel's shared
-memory (:data:`MAX_CHUNK`).  Bit positions are 64-bit on every device, so
-a stream may run past 2**32 bits.  The legacy ``hf``/``hz`` tags are not
-read yet.
+Blobs are byte-identical to the reference's for the ``z2``/``z4`` (zlib),
+``hc``/``hZ`` (chunked Huffman) and legacy ``hf``/``hz`` (one Huffman
+stream, no chunk table; :func:`encode_codes_legacy`) tags.  The per-symbol
+work never leaves the symbols' device: what the kernels cannot take is
+refused with a ``ValueError`` on every device -- a table with a code longer
+than 32 bits (no encoder writes one) or a chunk larger than the encode
+kernel's shared memory (:data:`MAX_CHUNK`).  Bit positions are 64-bit on
+every device, so a stream may run past 2**32 bits.
+
+A legacy stream decodes in two launches (:meth:`HuffmanCodec.decode_bitwalk`):
+a boundary pass walks it once and finds every chunk's start bit, then the
+chunked decode kernel decodes the chunks in parallel, so it gives the same
+ids as a chunked stream.  :func:`decode_codes_range` reads a symbol range
+of an ``hc``/``hZ`` blob by decoding only the chunks that cover it.
 """
 from __future__ import annotations
 
@@ -53,6 +59,26 @@ def _chunk_bits_dtype(chunk_size: int) -> str:
     """Chunk-table entry width: u16 whenever a full chunk of max-length codes
     fits (wire format, pinned to the frozen ``_FMT_CODE_LEN``)."""
     return "<u2" if chunk_size * _FMT_CODE_LEN <= 0xFFFF else "<u4"
+
+
+def shannon_bits(symbols) -> float:
+    """Ideal entropy-coded size in bits (a lower bound for any entropy
+    coder) of a tensor or array.  Integer alphabets spanning at most 2**22
+    values are counted by ``torch.bincount``; wider ones and floats by
+    ``torch.unique``."""
+    flat = torch.as_tensor(symbols).reshape(-1)
+    if flat.numel() == 0:
+        return 0.0
+    counts = None
+    if not (flat.is_floating_point() or flat.is_complex()):
+        lo, hi = torch.stack(torch.aminmax(flat)).tolist()
+        if hi - lo + 1 <= _DENSE_SPAN:
+            counts = torch.bincount(flat.to(torch.int64) - lo)
+            counts = counts[counts > 0]
+    if counts is None:
+        counts = torch.unique(flat, return_counts=True)[1]
+    p = counts.to(torch.float64) / counts.sum()
+    return float(-(p * torch.log2(p)).sum() * flat.numel())
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +211,18 @@ def _multi_lut(lut1: np.ndarray, k: int, B: int, S: int) -> np.ndarray:
         count[ok] += np.uint64(1)
         active = ok
     return acc | (consumed << np.uint64(8)) | count
+
+
+def _stream_words(stream: bytes, w0: int, w1: int | None, device) -> torch.Tensor:
+    """Big-endian u32 words w0 .. w1-1 (None: to the end) of a byte stream,
+    as int32 on ``device``, zero-padded past the stream plus 2 zero tail
+    words for the decode's wi+1 gather."""
+    lo = min(4 * w0, len(stream))
+    hi = len(stream) if w1 is None else min(4 * w1, len(stream))
+    raw = np.frombuffer(stream, np.uint8, max(hi - lo, 0), lo)
+    padded = np.zeros(raw.size + (-raw.size) % 4 + 8, np.uint8)
+    padded[: raw.size] = raw
+    return torch.from_numpy(padded.view(">u4").astype(np.uint32).view(np.int32)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -371,8 +409,10 @@ class HuffmanCodec:
     # -- decode -------------------------------------------------------------------
     def decode_chunked_device(self, stream: bytes, n_symbols: int, chunk_size: int,
                               chunk_bits: np.ndarray, *, total_bits: int | None,
-                              device: torch.device) -> torch.Tensor:
-        """Decode a chunked stream on ``device``; returns int32 symbols."""
+                              device: torch.device, chunk_range=None) -> torch.Tensor:
+        """Decode a chunked stream on ``device``; returns int32 symbols.
+        ``chunk_range=(c0, c1)`` decodes only chunks c0 .. c1-1 (and uploads
+        only their words): the symbols from c0 * chunk_size on."""
         if n_symbols == 0:
             return torch.zeros(0, dtype=torch.int32, device=device)
         if self.alphabet.size == 0:
@@ -391,31 +431,77 @@ class HuffmanCodec:
         if chunk_size * _FMT_CODE_LEN >= 1 << 31:
             raise ValueError(f"Huffman chunks of {chunk_size} symbols are past the "
                              "decoder's int32 chunk lengths")
-        args, kw = self._decode_inputs(stream, n_symbols, chunk_size, ends - chunk_bits,
-                                       device)
-        ids = ops.huffman_decode_op(*args, **kw, lut=self._tables_on(device)["lut"])
-        # only the last chunk can be short, so row-major flatten + truncate
-        # is exactly the symbol stream
-        return self._tables_on(device)["alphabet"][ids.reshape(-1)[:n_symbols]]
+        c0, c1 = (0, C) if chunk_range is None else chunk_range
+        offsets = ends - chunk_bits
+        w0 = int(offsets[c0]) >> 5  # the first word the range reads
+        w1 = -(-int(ends[c1 - 1]) // 32)  # past the last word it reads
+        args, kw = self._decode_inputs(stream, n_symbols, chunk_size, offsets, device,
+                                       chunk_range=(c0, c1), word_range=(w0, w1))
+        return self._ids_to_symbols(args, kw, min(n_symbols, c1 * chunk_size) - c0 * chunk_size,
+                                    device)
+
+    def _ids_to_symbols(self, args, kw, n_out: int, device: torch.device) -> torch.Tensor:
+        """Run the chunked decode kernel on its inputs and map the first
+        ``n_out`` ids (only the last chunk can be short, so the row-major
+        flatten is the symbol stream) to alphabet values."""
+        tabs = self._tables_on(device)
+        ids = ops.huffman_decode_op(*args, **kw, lut=tabs["lut"])
+        return tabs["alphabet"][ids.reshape(-1)[:n_out]]
 
     def _decode_inputs(self, stream: bytes, n_symbols: int, chunk_size: int,
-                       offsets: np.ndarray, device: torch.device):
+                       offsets, device: torch.device, *, chunk_range=None,
+                       word_range=None):
         """The decode kernel's arguments on ``device``: (words, offsets,
-        counts, six tables) and (chunk_size, k)."""
+        counts, six tables) and (chunk_size, k).  ``offsets`` are every
+        chunk's start bit; ``chunk_range`` keeps chunks c0 .. c1-1 and
+        ``word_range`` uploads only stream words w0 .. w1-1, the offsets
+        shifted to match."""
         tabs = self._tables_on(device)
-        C = offsets.size
+        C = offsets.shape[0]
+        c0, c1 = (0, C) if chunk_range is None else chunk_range
         counts = np.full(C, chunk_size, np.int32)
         counts[-1] = n_symbols - chunk_size * (C - 1)
-        raw = np.frombuffer(stream, np.uint8)
-        # pad to a word boundary + 2 zero tail words for the wi+1 gather
-        padded = np.zeros(raw.size + (-raw.size) % 4 + 8, np.uint8)
-        padded[: raw.size] = raw
-        words = padded.view(">u4").astype(np.uint32).view(np.int32)
-        args = (torch.from_numpy(words).to(device),
-                torch.from_numpy(offsets.astype(np.int64)).to(device),
-                torch.from_numpy(counts).to(device), tabs["lut_count"], tabs["lut_bits"],
-                tabs["lut_ids"], tabs["cw_map"], tabs["order"], tabs["len_sorted"])
+        w0, w1 = (0, None) if word_range is None else word_range
+        words = _stream_words(stream, w0, w1, device)
+        offs = torch.from_numpy(np.asarray(offsets[c0:c1], np.int64) - 32 * w0).to(device)
+        args = (words, offs, torch.from_numpy(counts[c0:c1]).to(device), tabs["lut_count"],
+                tabs["lut_bits"], tabs["lut_ids"], tabs["cw_map"], tabs["order"],
+                tabs["len_sorted"])
         return args, {"chunk_size": chunk_size, "k": tabs["k"]}
+
+    def decode_bitwalk(self, blob, n_symbols: int, *, device) -> torch.Tensor:
+        """Decode a legacy stream (``hf``/``hz``: a <Q bit count, then the
+        codes MSB-first, no chunk table) on ``device``; returns int32
+        symbols.  A boundary pass (``ops.huffman_legacy_bounds_op``) finds
+        the start bit of every :data:`DEFAULT_CHUNK` symbols, then the
+        chunked decode decodes those chunks in parallel; the pass's end must
+        land on the stream's bit count."""
+        device = torch.device(device)
+        if n_symbols == 0:
+            return torch.zeros(0, dtype=torch.int32, device=device)
+        if self.alphabet.size == 0:
+            raise ValueError("empty codec cannot decode a nonempty stream")
+        (total,) = struct.unpack_from("<Q", blob, 0)
+        stream = bytes(blob[8:])
+        if len(stream) < (total + 7) // 8:
+            raise ValueError("truncated Huffman stream")
+        tabs = self._tables_on(device)
+        words = _stream_words(stream, 0, None, device)
+        cs = DEFAULT_CHUNK
+        bounds = ops.huffman_legacy_bounds_op(words, tabs["cw_map"], tabs["len_sorted"],
+                                              n_symbols=n_symbols, chunk_size=cs)
+        end = int(bounds[-1])
+        if end != total:
+            raise ValueError(f"legacy Huffman stream of {total} bits ends its "
+                             f"{n_symbols} symbols at bit {end}")
+        C = bounds.shape[0] - 1
+        counts = np.full(C, cs, np.int32)
+        counts[-1] = n_symbols - cs * (C - 1)
+        args = (words, bounds[:C], torch.from_numpy(counts).to(device), tabs["lut_count"],
+                tabs["lut_bits"], tabs["lut_ids"], tabs["cw_map"], tabs["order"],
+                tabs["len_sorted"])
+        return self._ids_to_symbols(args, {"chunk_size": cs, "k": tabs["k"]}, n_symbols,
+                                    device)
 
     # -- serialization --------------------------------------------------------------
     def table_bytes(self) -> bytes:
@@ -651,6 +737,29 @@ def parse_chunked(blob):
     return codec, n, cs, chunk_bits, stream, total
 
 
+def encode_codes_legacy(codes: torch.Tensor, backend: str = "huffman+zlib") -> bytes:
+    """The seed (pre-chunking) encoder: an ``hf``/``hz`` blob, byte-identical
+    to the reference's.  A legacy stream's bits are the chunked stream's
+    spliced bits (both MSB-first), so the fit (``symbol_hist``) and pack
+    (``huffman_encode``) run on the codes' device as for ``hc``/``hZ``; only
+    the framing differs: the bit count, the stream, no chunk table."""
+    flat = codes.reshape(-1).to(torch.int32)
+    if backend not in ("huffman", "huffman+zlib"):
+        raise ValueError(f"legacy encoder only supports huffman backends, got {backend!r}")
+    codec = HuffmanCodec.fit(flat)
+    stream, total = b"", 0
+    if flat.numel():
+        stream, _bits, total = codec._device_pack(flat, DEFAULT_CHUNK)
+    body = struct.pack("<Q", total) + stream
+    if backend == "huffman+zlib":
+        body = zlib.compress(body, 6)
+        tag = b"hz"
+    else:
+        tag = b"hf"
+    table = codec.table_bytes()
+    return _MAGIC + tag + struct.pack("<QI", flat.numel(), len(table)) + table + body
+
+
 def decode_codes(blob: bytes, shape: tuple[int, ...], *, device) -> torch.Tensor:
     """Decode an entropy blob back to int32 codes of ``shape`` on ``device``."""
     if bytes(blob[:4]) != _MAGIC:
@@ -667,5 +776,40 @@ def decode_codes(blob: bytes, shape: tuple[int, ...], *, device) -> torch.Tensor
         out = codec.decode_chunked_device(stream, n, cs, chunk_bits,
                                           total_bits=total, device=device)
         return out.reshape(shape)
-    raise ValueError(f"unsupported entropy tag {tag!r} (legacy hf/hz blobs are "
-                     "not read by this package yet)")
+    if tag in (b"hf", b"hz"):
+        n, tlen = struct.unpack_from("<QI", blob, 6)
+        off = 6 + 12
+        codec = _cached_codec(bytes(blob[off : off + tlen]))
+        body = blob[off + tlen :]
+        if tag == b"hz":
+            body = zlib.decompress(body)
+        return codec.decode_bitwalk(body, n, device=device).reshape(shape)
+    raise ValueError(f"unknown entropy tag {tag!r}")
+
+
+def decode_codes_range(blob: bytes, lo: int, hi: int, *, device) -> torch.Tensor:
+    """Symbols ``[lo, hi)`` of an entropy blob as flat int32 on ``device``:
+    equal to ``decode_codes(blob, (-1,), device=device)[lo:hi]``.
+
+    On ``hc``/``hZ`` a partial read: only the chunks covering the range are
+    uploaded and decoded (``hZ`` still pays one zlib pass over the lane); the
+    other tags decode whole and are sliced.  A range outside ``[0, n)``
+    raises ``ValueError``."""
+    if bytes(blob[:4]) != _MAGIC:
+        raise ValueError("bad entropy blob magic")
+    device = torch.device(device)
+    if bytes(blob[4:6]) in (b"hc", b"hZ"):
+        (n,) = struct.unpack_from("<Q", blob, 6)
+        if not 0 <= lo <= hi <= n:
+            raise ValueError(f"symbol range [{lo}, {hi}) outside [0, {n})")
+        if lo == hi:
+            return torch.zeros(0, dtype=torch.int32, device=device)
+        codec, n, cs, chunk_bits, stream, total = parse_chunked(blob)
+        c0, c1 = lo // cs, -(-hi // cs)
+        out = codec.decode_chunked_device(stream, n, cs, chunk_bits, total_bits=total,
+                                          device=device, chunk_range=(c0, c1))
+        return out[lo - c0 * cs : hi - c0 * cs]
+    flat = decode_codes(blob, (-1,), device=device)
+    if not 0 <= lo <= hi <= flat.numel():
+        raise ValueError(f"symbol range [{lo}, {hi}) outside [0, {flat.numel()})")
+    return flat[lo:hi]

@@ -16,12 +16,17 @@ containers are byte-identical to the reference's; interp containers share
 its layout and open in either package, their codes differing where the two
 packages' float32 predictions do (GWTC v3 written; v1, v2 and v3 read).
 The XLA-oriented ``dispatch_bucketed`` has no counterpart: eager PyTorch
-compiles nothing per batch size, so decode is one batched call.
+compiles nothing per batch size, so decode is one batched call.  Its
+process-wide counters stay, for the serving daemon's ``/metrics``:
+:func:`dispatch_stats` counts one dispatch per :func:`decode_lanes` batch,
+with a histogram by batch size; ``programs`` and ``padded_tiles`` keep the
+reference's keys and stay 0.
 """
 from __future__ import annotations
 
 import io
 import struct
+import threading
 import zlib
 from dataclasses import dataclass, field
 
@@ -54,6 +59,33 @@ _HDR_V3 = _HDR_V2
 _FOOTER_V3 = struct.Struct("<QQ")  # (extras offset, index offset)
 _BACKENDS = {"zlib": 0, "huffman": 1, "huffman+zlib": 2}
 _BACKENDS_INV = {v: k for k, v in _BACKENDS.items()}
+
+_DISPATCH_LOCK = threading.Lock()
+DISPATCH_STATS = {"dispatches": 0, "programs": 0, "padded_tiles": 0, "batch_hist": {}}
+
+
+def _record_dispatch(n: int) -> None:
+    with _DISPATCH_LOCK:
+        DISPATCH_STATS["dispatches"] += 1
+        hist = DISPATCH_STATS["batch_hist"]
+        hist[n] = hist.get(n, 0) + 1
+
+
+def dispatch_stats() -> dict:
+    """Snapshot of the process-wide decode counters (the reference's keys):
+    ``dispatches`` (one per :func:`decode_lanes` batch), ``batch_hist``
+    (batch size -> dispatches), and ``programs`` / ``padded_tiles``, always
+    0 here: nothing is compiled or padded per batch size."""
+    with _DISPATCH_LOCK:
+        out = dict(DISPATCH_STATS)
+        out["batch_hist"] = dict(DISPATCH_STATS["batch_hist"])
+        return out
+
+
+def reset_dispatch_stats() -> None:
+    """Zero the decode counters."""
+    with _DISPATCH_LOCK:
+        DISPATCH_STATS.update(dispatches=0, programs=0, padded_tiles=0, batch_hist={})
 
 
 def lane_crc(data) -> int:
@@ -467,6 +499,7 @@ def decode_lanes(artifact: TiledCompressed, lane_ids, *, with_mask: bool = False
         payload = {k: torch.stack([it[k] for it in items]) for k in items[0]}
         recon = pred.decode_tiles(payload, artifact.eb_abs, tile=tile,
                                   order=artifact.order, levels=artifact.levels)
+        _record_dispatch(len(good))
     bad_mask = np.ones(len(lane_ids), bool)
     bad_mask[good] = False
     if bad_mask.any():

@@ -574,3 +574,107 @@ def test_stream_on_the_card_matches_the_cpu(cuda, predictor, tmp_path):
     rep = stream_compress(x, str(out), resume=True, **kw)
     assert rep.resumed_batches == 1
     assert out.read_bytes() == (tmp_path / "cpu.gwtc").read_bytes()
+
+
+def _legacy_case(case: str) -> np.ndarray:
+    rng = np.random.default_rng(len(case))
+    if case == "escape":  # codes past the 12-bit LUT, up to the search's depth
+        sizes = [2**i for i in range(18, 0, -1)] + [1, 1]
+        codes = np.repeat(np.arange(len(sizes), dtype=np.int32), sizes)
+        rng.shuffle(codes)
+        return codes
+    if case == "wide_alphabet":  # > 4,096 symbols: tables stay in global memory
+        return rng.integers(-5000, 5000, size=300_000).astype(np.int32)
+    if case == "one_symbol":
+        return np.full(1000, -3, np.int32)
+    if case == "short":
+        return rng.integers(-3, 4, size=100).astype(np.int32)
+    return np.round(rng.normal(0, 3, size=64**3)).astype(np.int32)  # "lane_64^3"
+
+
+@pytest.mark.parametrize("case", ["escape", "wide_alphabet", "one_symbol", "short", "lane_64^3"])
+def test_huffman_legacy_bounds_kernel_matches_plain_version(cuda, case):
+    """The boundary pass against its plain version; the legacy blob's bytes
+    equal on the card and the CPU, and its decode on the card (one boundary
+    launch, one decode launch) returns the codes."""
+    codes = _legacy_case(case)
+    flat = torch.from_numpy(codes).to(cuda)
+    blobs = {b: entropy.encode_codes_legacy(flat, b) for b in ("huffman", "huffman+zlib")}
+    for backend, blob in blobs.items():
+        assert blob == entropy.encode_codes_legacy(torch.from_numpy(codes), backend)
+    codec = entropy.HuffmanCodec.fit(flat)
+    body = blobs["huffman"][18 + len(codec.table_bytes()):]  # <Q bit count, then the stream
+    tabs = codec._tables_on(cuda)
+    words = entropy._stream_words(body[8:], 0, None, cuda)
+    kw = dict(n_symbols=codes.size, chunk_size=entropy.DEFAULT_CHUNK)
+    args = (words, tabs["cw_map"], tabs["len_sorted"])
+    ops.reset_launches()
+    got = ops.huffman_legacy_bounds_op(*args, **kw)
+    assert ops.LAUNCHES["huffman_legacy"] == 1
+    assert torch.equal(got, ref.huffman_legacy_bounds_ref(*args, **kw))
+    for blob in blobs.values():
+        ops.reset_launches()
+        out = entropy.decode_codes(blob, codes.shape, device=cuda)
+        assert ops.LAUNCHES["huffman_legacy"] == 1 and ops.LAUNCHES["huffman_decode"] == 1
+        assert torch.equal(out.cpu(), torch.from_numpy(codes))
+
+
+def test_range_decode_on_the_card(cuda):
+    codes = _legacy_case("lane_64^3")
+    n = codes.size
+    for backend in ("huffman", "huffman+zlib"):
+        blob = entropy.encode_codes(torch.from_numpy(codes), backend)
+        for lo, hi in [(0, n), (0, 0), (255, 257), (256, 512), (n - 1, n), (1000, 99_999)]:
+            got = entropy.decode_codes_range(blob, lo, hi, device=cuda)
+            assert torch.equal(got.cpu(), torch.from_numpy(codes[lo:hi])), (backend, lo, hi)
+
+
+def test_serve_http_on_the_card(cuda, tmp_path):
+    """Eight client threads over HTTP against a pool of a tiled Lorenzo and
+    an enhanced tiled volume: every region equals the crop of an eager
+    decode through a separate handle, and the decode and enhancer kernels
+    ran on the handler threads."""
+    import threading
+
+    from repro_torch import api
+    from repro_torch.core.trainer import GWLZTrainConfig
+    from repro_torch.data import nyx_like_field
+    from repro_torch.serve import RegionServer, fetch_json, fetch_region
+
+    x = np.asarray(nyx_like_field((48, 48, 48), "temperature", seed=2), np.float32)
+    paths = {"lor": tmp_path / "lor.gwtc", "gw": tmp_path / "gw.gwtc"}
+    api.save(paths["lor"], api.compress(x, eb=1e-3, tiled=True, tile=(16,) * 3,
+                                        predictor="lorenzo"))
+    api.save(paths["gw"], api.compress(x, eb=1e-3, tiled=True, tile=(16,) * 3,
+                                       predictor="lorenzo",
+                                       enhance=GWLZTrainConfig(n_groups=4, epochs=1)))
+    full = {}
+    for name, p in paths.items():
+        with api.open(p) as v:
+            full[name] = np.asarray(v).copy()
+    errors = []
+    ops.reset_launches()
+    with RegionServer(paths, cache_bytes=1 << 20) as srv:
+        def client(seed):
+            rng = np.random.default_rng(seed)
+            try:
+                for _ in range(5):
+                    lo = rng.integers(0, 32, 3)
+                    hi = lo + rng.integers(1, 17, 3)
+                    roi = ",".join(f"{a}:{b}" for a, b in zip(lo, hi))
+                    name = ("lor", "gw")[seed % 2]
+                    arr, _ = fetch_region(srv.url, name, roi)
+                    want = full[name][tuple(slice(a, b) for a, b in zip(lo, hi))]
+                    assert np.array_equal(arr, want), (name, roi)
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+        ts = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        m = fetch_json(srv.url, "/metrics")
+    assert not errors, errors[0]
+    assert m["requests"] == 40 and m["errors"] == 0
+    assert all(ops.LAUNCHES[k] > 0 for k in ("huffman_decode", "group_hist", "enhancer_fused"))

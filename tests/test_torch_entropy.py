@@ -6,6 +6,8 @@ the kernels run).  Codecs, blob bytes and decodes are compared bit for bit,
 and the plain kernels are held against the reference's Pallas kernels in
 interpret mode (one small case each) and its jnp path.
 """
+import struct
+
 import numpy as np
 import pytest
 import torch
@@ -337,3 +339,122 @@ def test_zlib_tag_and_bytes_equal_the_reference(lane):
     blob = P.encode_codes(_t(a), "zlib")
     assert blob == R.encode_codes(a, "zlib")
     assert blob[4:6] == (b"z2" if np.abs(a.astype(np.int64)).max() < 2**15 else b"z4")
+
+
+# ---------------------------------------------------------------------------
+# the read leftovers: shannon_bits, legacy hf/hz blobs, range decode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["dense", "one_symbol", "int64_pair", "sparse_span",
+                                  "float", "empty"])
+def test_shannon_bits_matches_reference(case):
+    rng = np.random.default_rng(31)
+    x = {"dense": rng.integers(-500, 500, size=20000).astype(np.int32),
+         "one_symbol": np.full(100, 7, np.int32),
+         "int64_pair": rng.choice([0, 1], size=64).astype(np.int64),
+         "sparse_span": np.array([-(2**40), 0, 2**40, 2**40], np.int64),
+         "float": rng.normal(size=3000),
+         "empty": np.zeros(0, np.int32)}[case]
+    want = R.shannon_bits(x)
+    assert P.shannon_bits(_t(x)) == pytest.approx(want, rel=1e-12)
+    assert P.shannon_bits(x) == pytest.approx(want, rel=1e-12)
+
+
+def _legacy_cases():
+    cases = {k: v for k, v in _cases().items() if k != "big_magnitude"}
+    rng = np.random.default_rng(3)
+    cases["seed_test"] = rng.choice([0, 0, 0, 1, -2], size=5000).astype(np.int32)
+    cases["escape"] = _escape_codes(18)
+    cases["ten_of_one"] = np.full(10, 4, np.int32)
+    return cases
+
+
+@pytest.mark.parametrize("backend", ["huffman", "huffman+zlib"])
+@pytest.mark.parametrize("name", list(_legacy_cases()))
+def test_legacy_bytes_and_cross_decode(name, backend):
+    """``encode_codes_legacy`` bytes equal the reference's; each package
+    decodes the other's hf/hz blob bit for bit (the escape case has codes
+    past the 12-bit LUT; empty has n_symbols == 0)."""
+    codes = _legacy_cases()[name]
+    port = P.encode_codes_legacy(_t(codes), backend)
+    assert port[4:6] == (b"hf" if backend == "huffman" else b"hz")
+    assert port == R.encode_codes_legacy(codes, backend)
+    np.testing.assert_array_equal(P.decode_codes(port, codes.shape, device="cpu").numpy(), codes)
+    np.testing.assert_array_equal(R.decode_codes(port, codes.shape), codes)
+    with pytest.raises(ValueError, match="huffman backends"):
+        P.encode_codes_legacy(_t(codes), "zlib")
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 2000])
+def test_legacy_bounds_plain_version_against_bitwalk(n):
+    """The boundary pass's plain version gives each chunk's start bit as the
+    reference encoder's per-symbol bit ends place it, and the decode from
+    those bounds equals the reference's ``decode_bitwalk``."""
+    codes = _escape_codes(13)[:n]
+    rcodec = R.HuffmanCodec.fit(codes, use_accel=False)
+    _packed, ends, total = rcodec._encode_bits(codes)
+    stream = rcodec.encode(codes)
+    codec = P.HuffmanCodec.fit(_t(codes))
+    tabs = codec._tables_on(torch.device("cpu"))
+    words = P._stream_words(stream[8:], 0, None, "cpu")
+    cs = P.DEFAULT_CHUNK
+    got = ops.huffman_legacy_bounds_op(words, tabs["cw_map"], tabs["len_sorted"],
+                                       n_symbols=n, chunk_size=cs).numpy()
+    want = np.concatenate([[0], ends[cs - 1 : n - 1 : cs], [total]])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(codec.decode_bitwalk(stream, n, device="cpu").numpy(),
+                                  rcodec.decode_bitwalk(stream, n))
+
+
+def test_legacy_stream_that_ends_off_its_bit_count_is_refused():
+    codes = _escape_codes(10)
+    blob = bytearray(P.encode_codes_legacy(_t(codes), "huffman"))
+    n, tlen = struct.unpack_from("<QI", blob, 6)
+    struct.pack_into("<Q", blob, 18 + tlen, struct.unpack_from("<Q", blob, 18 + tlen)[0] - 1)
+    with pytest.raises(ValueError, match="ends its"):
+        P.decode_codes(bytes(blob), codes.shape, device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["huffman", "huffman+zlib", "zlib", "legacy"])
+def test_decode_codes_range_is_the_slice(backend):
+    """``decode_codes_range`` equals the full decode's slice bit for bit on
+    chunk edges, single symbols and empty ranges, and agrees with the
+    reference's; a range outside [0, n) raises ValueError in both."""
+    codes = np.random.default_rng(17).choice([0] * 6 + list(range(-20, 20)),
+                                              size=5000).astype(np.int32)
+    n = codes.size
+    blob = (P.encode_codes_legacy(_t(codes), "huffman+zlib") if backend == "legacy"
+            else P.encode_codes(_t(codes), backend, chunk_size=64))
+    full = P.decode_codes(blob, (n,), device="cpu")
+    for lo, hi in [(0, n), (0, 0), (n, n), (64, 64), (0, 64), (64, 128), (63, 65),
+                   (100, 101), (n - 1, n), (1000, 4321), (n - 64, n)]:
+        got = P.decode_codes_range(blob, lo, hi, device="cpu")
+        assert got.dtype == torch.int32
+        assert torch.equal(got, full[lo:hi]), (lo, hi)
+        np.testing.assert_array_equal(got.numpy(), R.decode_codes_range(blob, lo, hi))
+    for lo, hi in [(0, n + 1), (-1, 3), (10, 9)]:
+        with pytest.raises(ValueError):
+            P.decode_codes_range(blob, lo, hi, device="cpu")
+        with pytest.raises(ValueError):
+            R.decode_codes_range(blob, lo, hi)
+
+
+def test_range_decode_uploads_only_its_chunks(monkeypatch):
+    """On hc/hZ a range decodes only the chunks that cover it: the decode
+    op sees those chunks' offsets and counts and only their words."""
+    codes = np.random.default_rng(2).integers(-30, 30, size=4096).astype(np.int32)
+    blob = P.encode_codes(_t(codes), "huffman", chunk_size=64)
+    seen = []
+    real = ops.huffman_decode_op
+
+    def spy(words, offsets, counts, *a, **kw):
+        seen.append((words.numel(), offsets.tolist(), counts.tolist()))
+        return real(words, offsets, counts, *a, **kw)
+
+    monkeypatch.setattr(ops, "huffman_decode_op", spy)
+    got = P.decode_codes_range(blob, 130, 250, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), codes[130:250])
+    (n_words, offsets, counts), = seen
+    assert len(offsets) == 2 and counts == [64, 64]  # chunks 2 and 3
+    assert n_words * 32 < sum(P.parse_chunked(blob)[3]) / 4

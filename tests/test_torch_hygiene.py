@@ -114,5 +114,5 @@ def test_launch_counters_reset_and_count_only_launches():
     # CPU tensors run the plain versions: no kernel launched, none counted
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
     assert set(ops.LAUNCHES) == {"lorenzo_quant_tiles", "lorenzo_quant", "symbol_hist",
-                                 "huffman_encode", "huffman_decode", "group_hist",
-                                 "enhancer_fused"}
+                                 "huffman_encode", "huffman_decode", "huffman_legacy",
+                                 "group_hist", "enhancer_fused"}
