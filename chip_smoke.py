@@ -128,6 +128,42 @@ Phases (any failure raises and the script exits non-zero):
               with the batcher than without.  Prints client p50/p99 and
               req/s, the hit rate, the batcher's and admission's counters,
               the storm's launches per kernel and the device peak;
+12c. gwds  -- a two-field snapshot of 512^3 fields in one GWDS file:
+              GWDSWriter.add_field of main's tiled Lorenzo artifact, then
+              stream_field of the same field from the stream phase's .npy
+              memmap under 256 MiB (the executor writing into the envelope's
+              shared sink), finalize.  Checks: the streamed field's bytes ==
+              main's container (sha256), api.open (mmap) lists both fields,
+              each decodes bit for bit to main's eager decode, the ROI ==
+              the crop, Dataset.build of the two artifacts == the file's
+              bytes, ``cli info``, ``region --field`` and ``verify`` exit 0
+              in subprocesses, and an append fault in a streamed field fails
+              after one attempt (no retry on a shared sink).  Prints the
+              write, stream, open, decode and region times, the envelope's
+              bytes and size_report, and launches;
+12d. checkpoint -- (a) a seeded training state on the card (proj float32
+              [4096, 4096] and experts [8, 1024, 2048]: the GWLZ branch, 30
+              epochs, G = 8, the 2-D one by the rank fold; emb bfloat16
+              [32000, 128]: SZ interp; norm [4096] and an int64 step: exact)
+              saved by an async CheckpointManager(gwlz_rel_eb=1e-4), waited
+              for and restored into like-shaped tensors on the card: every
+              compressed leaf within eb (1 + 1e-5) plus one float32 ulp of
+              max|x| (the interp coarse grid's 2eb q rounding; twice that
+              where the GWLZ gate kept a group; bfloat16 also its cast's
+              half ulp), exact leaves bit-equal, dtypes and devices kept;
+              prints the save (host copy), wait and restore seconds and
+              each leaf's bytes on disk against raw; then proj alone
+              through the SZ branch (2-D, no fold, no enhancers), within eb,
+              with its seconds and bytes.  (b) a ResilientLoop over
+              core/trainer.py::train_step (G = 20, C = 9, batch 10 of the
+              szjx decode's 512x512 planes and residuals), 40 steps, a
+              checkpoint every 10, once clean and once with failures
+              injected at steps 17 and 31, cuDNN deterministic, each run
+              with a HeartbeatMonitor: restarts 0 and 2, final parameters,
+              BN state and AdamW moments bit for bit equal, one heartbeat a
+              step run (up to the window); prints ms a step, the seconds a
+              restart costs, and each run's median heartbeat and
+              stragglers;
 13. cli     -- ``python -m repro_torch.cli`` in subprocesses on
               synthetic:temperature:64, tiled (tile 16) and monolithic,
               Lorenzo: compress -> info -> region -> decompress -> verify;
@@ -225,6 +261,8 @@ SERVE_BUDGET = 256 << 20  # cache and admission budget: the CLI's defaults
 SERVE_WAIT_MS = 2.0  # the batcher's window: the CLI's default
 STREAM_BUDGET = 256 << 20  # the reference's default compress_stream mem_budget
 STREAM_EPOCHS = 5  # stream (e): the reservoir's 32 tiles, 2,048 slices of 64x64
+CKPT_REL_EB = 1e-4  # checkpoint (a): the reference test's bound for compressed leaves
+LOOP_STEPS, LOOP_EVERY, LOOP_FAILS = 40, 10, (17, 31)  # checkpoint (b): the reference test's
 ENHANCE_RTOL = 1e-5  # |kernel - plain| <= ENHANCE_RTOL * (1 + max|plain|)
 # a parent commit's tree, unpacked with git archive: its Lorenzo kernels are
 # timed beside this tree's in the same run when it is there
@@ -1406,6 +1444,336 @@ def cli_path(tmp: Path) -> None:
           "seconds": {k: [round(v, 3) for v in vs] for k, vs in took.items()}})
 
 
+def gwds_path(x_np, tmp: Path, art, main_id: dict) -> dict:
+    """A two-field snapshot of 512^3 fields in one GWDS file: main's tiled
+    Lorenzo artifact added whole, and the same field streamed from the
+    stream phase's .npy memmap into the envelope's shared sink under the
+    256 MiB budget.  Checks: the streamed field's bytes equal main's
+    container; api.open (mmap) lists both fields, each decodes bit for bit
+    to main's eager decode, the ROI equals the crop; Dataset.build of the
+    two artifacts gives the file's bytes; the CLI's info, region --field
+    and verify run on the file; a fault injected into the streamed field's
+    append fails after one attempt (shared sink: no retry).  Returns the
+    phase's launches (the CLI's subprocesses launch in their own
+    processes, which this one does not count)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.exec import GWDSWriter, NpyFileSource, stream_compress
+    from repro_torch.exec.writer import parse_gwds
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.fault import FailureInjector, RetryPolicy
+    from repro_torch.sz import decompress_tiled
+
+    src = tmp / "stream_src.npy"  # the stream phase's .npy of the same field
+    path = tmp / "snapshot.gwds"
+    names = ("temperature", "temperature_stream")
+    kw = dict(tile=TILE, mem_budget=STREAM_BUDGET, backend=BACKEND)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = GWDSWriter(path)
+    w.add_field(names[0], art)
+    t1 = time.perf_counter()
+    gw = w.stream_field(names[1], shape=SHAPE, tile=TILE, eb_abs=art.eb_abs, backend=BACKEND)
+    rep = stream_compress(NpyFileSource(src), gw, rel_eb=REL_EB, **kw)
+    total = w.finalize()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    blob = path.read_bytes()
+    index = parse_gwds(blob)
+    fo, fl = index[names[1]]
+    check(total == len(blob) and list(index) == list(names), f"gwds index {index}")
+    check(hashlib.sha256(blob[fo:fo + fl]).hexdigest() == main_id["sha256"]
+          and fl == main_id["bytes"], "gwds: the streamed field differs from main's container")
+    check(api.Dataset.build({names[0]: art, names[1]: art}) == blob,
+          "gwds: Dataset.build of the two artifacts differs from the streamed file")
+    eager = decompress_tiled(art)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    decode_s = {}
+    with api.open(path) as ds:
+        t4 = time.perf_counter()
+        check(ds.fields == names, f"gwds: api.open lists {ds.fields}")
+        for name in names:
+            t = time.perf_counter()
+            full = torch.from_numpy(np.array(ds[name])).to(eager.device)
+            decode_s[name] = time.perf_counter() - t
+            check(torch.equal(full, eager), f"gwds: field {name} != main's eager decode")
+            del full
+        t5 = time.perf_counter()
+        region = ds[names[1]][roi_key()]
+        t6 = time.perf_counter()
+        check(np.array_equal(region, eager[roi_key()].cpu().numpy()), "gwds: ROI != the crop")
+        size_report = ds.size_report()
+        check(size_report["total"] == len(blob), "gwds: size_report total")
+    launches = dict(ops.LAUNCHES)
+    del eager
+    check(launches["huffman_decode"] > 0 and all(
+        launches[k] == rep.n_batches for k in LANE_KERNELS), f"gwds launches {launches}")
+    # the CLI on the file, in subprocesses (the card is their default device)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli_s, cli_out = {}, {}
+    roi = ",".join(f"{a}:{b}" for a, b in ROI)
+    for argv in (["info", str(path)], ["region", str(path), "--roi", roi, "--field", names[0]],
+                 ["verify", str(path)]):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.cli", *argv], env=env,
+                           capture_output=True, text=True, timeout=300)
+        cli_s[argv[0]] = time.perf_counter() - t
+        check(r.returncode == 0, f"gwds cli {argv[0]} exited {r.returncode}: {r.stderr[-2000:]}")
+        cli_out[argv[0]] = r.stdout.strip().splitlines()
+    check(cli_out["info"][0].startswith("GWDS dataset: 2 fields"), f"cli info {cli_out['info']}")
+    check(cli_out["verify"] == [f"ok: field {n!r} (512 lanes)" for n in names],
+          f"cli verify {cli_out['verify']}")
+    # a fault in the streamed field's append: one attempt, no retry
+    inj = FailureInjector({5}, exc=OSError)
+    try:
+        with GWDSWriter(tmp / "fault.gwds") as fw:  # closes the file on the way out
+            fgw = fw.stream_field("t", shape=SHAPE, tile=TILE, eb_abs=art.eb_abs,
+                                  backend=BACKEND)
+            check(not fgw.can_rollback, "gwds: a shared-sink writer claims it can roll back")
+            stream_compress(NpyFileSource(src), fgw, abs_eb=art.eb_abs, **kw,
+                            write_injector=inj, retry=RetryPolicy(max_attempts=3, backoff=0.0))
+        check(False, "gwds: the injected append fault did not fail the stream")
+    except OSError as e:
+        check("injected" in str(e), f"gwds: not the injected fault: {e}")
+    check(inj.failed == {5: 1}, f"gwds: the append was tried {inj.failed} times, not once")
+    emit({"phase": "gwds", "shape": list(SHAPE), "tile": list(TILE), "rel_eb": REL_EB,
+          "mem_budget": STREAM_BUDGET, "fields": list(names), "envelope_bytes": len(blob),
+          "size_report": size_report, "stream_bytes_equal_main": True,
+          "n_batches": rep.n_batches, "write_s": t1 - t0, "stream_s": t2 - t1,
+          "eager_decode_s": t3 - t2, "open_s": t4 - t3, "decode_s": decode_s,
+          "region_ms": (t6 - t5) * 1e3, "cli_s": cli_s, "cli_region": cli_out["region"],
+          "fault_attempts": inj.failed[5], "launches": launches})
+    return launches
+
+
+def ckpt_bound(x, eb: float, bf16: bool, enhanced: bool = False):
+    """Elementwise bound of a restored compressed leaf: eb (1 + 1e-5) plus one
+    float32 ulp of max|x| (the interp coarse grid is Lorenzo-coded and its
+    2eb q rounds to float32, in both packages), twice that where the GWLZ
+    gate kept a group (``enhanced``: the clamp holds the enhanced value to
+    the SZ decode +- eb), plus, for bfloat16, the cast's half ulp (at most
+    2^-8 of |x| + eb)."""
+    bound = (2 if enhanced else 1) * (eb * (1 + 1e-5) + 2.0**-23 * float(x.abs().max()))
+    return bound + 2.0**-8 * (x.abs() + eb) if bf16 else bound
+
+
+def checkpoint_path(x_np, tmp: Path) -> dict:
+    """(a) GWLZ-compressed training state held on the card: a seeded state
+    (a 4096 x 4096 projection and [8, 1024, 2048] experts, float32, through
+    the GWLZ branch, the 2-D one by the rank fold; a bfloat16 [32000, 128]
+    embedding through the SZ branch; a norm vector and an int64 step,
+    exact) saved by an async CheckpointManager(gwlz_rel_eb=1e-4), waited
+    for and restored into like-shaped tensors on the card; the projection
+    also goes through the SZ branch alone, to weigh the rank fold.  (b) A
+    ResilientLoop over the port's enhancer training step (G = 20, C = 9,
+    batch 10 of the szjx decode's 512 x 512 planes and their residuals), 40
+    steps with a checkpoint every 10: once clean, once with failures
+    injected at steps 17 and 31, each under a HeartbeatMonitor; cuDNN is
+    deterministic for the phase, so the two must end bit for bit equal.
+    Returns the phase's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.checkpoint import CheckpointManager, compress_tensor, decompress_tensor
+    from repro_torch.core import grouping
+    from repro_torch.core.enhancer import GroupEnhancers
+    from repro_torch.core.pipeline import deserialize_model
+    from repro_torch.core.trainer import GWLZTrainConfig, _per_group_scale, train_step
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import step_decay
+    from repro_torch.runtime import FailureInjector, HeartbeatMonitor, ResilientLoop
+    from repro_torch.sz.szjax import SZCompressed
+
+    dev = torch.device("cuda")
+    ops.reset_launches()
+    # (a) the state
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = {"proj": torch.randn(4096, 4096, generator=g, device=dev) * 0.02,
+             "experts": torch.randn(8, 1024, 2048, generator=g, device=dev) * 0.02,
+             "emb": torch.randn(32000, 128, generator=g, device=dev).to(torch.bfloat16),
+             "norm": 1 + 0.1 * torch.randn(4096, generator=g, device=dev),
+             "step": torch.tensor(123456789, dtype=torch.int64, device=dev)}
+    ckdir = tmp / "ckpt"
+    m = CheckpointManager(ckdir, gwlz_rel_eb=CKPT_REL_EB, async_save=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m.save(1, state)
+    t1 = time.perf_counter()
+    m.wait()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    save_peak = torch.cuda.max_memory_allocated()
+    target = {k: torch.zeros_like(v) for k, v in state.items()}
+    out = m.restore(target)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    step_dir = ckdir / "step_00000001"
+    with open(step_dir / "manifest.json") as f:
+        manifest = json.load(f)
+    check(manifest["gwlz"] == {"emb": True, "experts": True, "proj": True},
+          f"checkpoint: compressed leaves {manifest['gwlz']}")
+    leaves = {}
+    for k, v in state.items():
+        r = out[k]
+        check(r.dtype == v.dtype and r.device == v.device and r.shape == v.shape,
+              f"checkpoint: leaf {k} restored as {r.dtype} on {r.device}")
+        row = {"dtype": str(v.dtype).removeprefix("torch."), "shape": list(v.shape),
+               "raw_bytes": v.numel() * v.element_size()}
+        if k in manifest["gwlz"]:
+            xf = v.float()
+            eb = CKPT_REL_EB * float(xf.max() - xf.min())
+            err = (r.float() - xf).abs()
+            blob = (step_dir / f"{k}.gwlz").read_bytes()
+            art = SZCompressed.from_bytes(blob[6 + len(row["dtype"]) + 8 * v.ndim:])
+            row.update(disk_bytes=len(blob), eb=eb, max_abs_err=float(err.max()),
+                       err_over_eb=float(err.max()) / eb, sz_shape=list(art.shape),
+                       branch="gwlz" if "gwlz" in art.extras else "sz")
+            if "gwlz" in art.extras:  # the groups the gate kept (0: the SZ decode as is)
+                model = deserialize_model(art.extras["gwlz"], device=dev)
+                row["groups_kept"] = int((model.rscale > 0).sum())
+            enhanced = row.get("groups_kept", 0) > 0
+            check(bool((err <= ckpt_bound(xf, eb, v.dtype == torch.bfloat16, enhanced)).all()),
+                  f"checkpoint: leaf {k} past its bound (max err {float(err.max())}, eb {eb}, "
+                  f"groups kept {row.get('groups_kept', 0)})")
+        else:
+            check(torch.equal(r, v), f"checkpoint: exact leaf {k} differs")
+            row["branch"] = "exact"
+        leaves[k] = row
+    save_launches = dict(ops.LAUNCHES)
+    # the same projection through the SZ branch (2-D interp, no fold, no
+    # enhancers): what the rank fold and the GWLZ training buy or cost it
+    proj = state["proj"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sz_blob = compress_tensor(proj, rel_eb=CKPT_REL_EB, enhance_threshold=proj.numel() + 1)
+    torch.cuda.synchronize()
+    sz_s = time.perf_counter() - t
+    sz_out = decompress_tensor(sz_blob)
+    eb = leaves["proj"]["eb"]
+    sz_err = float((sz_out - proj).abs().max())
+    check(sz_err <= float(ckpt_bound(proj, eb, False)),
+          f"checkpoint: proj through the SZ branch past eb ({sz_err}, eb {eb})")
+    leaves["proj"]["sz_branch"] = {
+        "seconds": sz_s, "disk_bytes": len(sz_blob),
+        "of_raw": len(sz_blob) / leaves["proj"]["raw_bytes"], "err_over_eb": sz_err / eb,
+        "sz_shape": list(SZCompressed.from_bytes(sz_blob[6 + 7 + 16:]).shape)}
+    leaves["proj"]["of_raw"] = leaves["proj"]["disk_bytes"] / leaves["proj"]["raw_bytes"]
+    del state, target, out, proj, sz_out
+    # (b) the restart loop over the enhancer's training step
+    with api.open(tmp / "field.szjx") as vol:
+        recon = torch.from_numpy(np.array(vol)).to(dev)
+    xs, rs = recon, torch.from_numpy(x_np).to(dev) - recon
+    del recon
+    cfg = GWLZTrainConfig()
+    G, bs, n_steps = cfg.n_groups, cfg.batch_size, LOOP_STEPS
+    edges = grouping.compute_edges(xs, G, cfg.strategy)
+    ids, counts = ops.group_hist_op(xs, edges)
+    rscale = torch.where(counts >= cfg.min_group_pixels, _per_group_scale(rs, ids, G), 0.0)
+    steps_per_epoch = xs.shape[0] // bs
+    sched = step_decay(cfg.lr, cfg.lr_decay_factor, cfg.lr_decay_every_epochs * steps_per_epoch)
+    order = torch.from_numpy(np.random.default_rng(cfg.seed).permutation(xs.shape[0])).to(dev)
+    enh = GroupEnhancers(G, cfg.channels, device=dev,
+                         generator=torch.Generator().manual_seed(cfg.seed))
+
+    def initial():
+        opt = adamw.init(enh.params())
+        return {"params": {k: p.detach().clone() for k, p in enh.params().items()},
+                "bn": {k: v.clone() for k, v in enh.state().items()},
+                "m": opt["m"], "v": opt["v"],
+                "adam_step": torch.tensor(0, dtype=torch.int64, device=dev)}
+
+    init = initial()
+
+    def batch_fn(step):
+        pos = step % steps_per_epoch
+        return order[pos * bs:(pos + 1) * bs], sched(step)
+
+    def step_fn(s, batch):
+        idx, lr = batch
+        enh.load(s["params"], s["bn"])
+        opt = {"step": int(s["adam_step"]), "m": s["m"], "v": s["v"]}
+        losses = train_step(enh, opt, xs[idx], rs[idx], ids[idx], edges, rscale, lr,
+                            n_groups=G, residual_learning=cfg.residual_learning)
+        return ({"params": {k: p.detach().clone() for k, p in enh.params().items()},
+                 "bn": {k: v.clone() for k, v in enh.state().items()},
+                 "m": opt["m"], "v": opt["v"],
+                 "adam_step": torch.tensor(opt["step"], dtype=torch.int64, device=dev)},
+                {"loss": losses})
+
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for name, fail_at in (("clean", set()), ("failed", set(LOOP_FAILS))):
+            mgr = CheckpointManager(tmp / f"loop_{name}", async_save=True, keep=5)
+            restores = []
+            real_restore = mgr.restore
+
+            def timed_restore(*a, _real=real_restore, _log=restores, **k):
+                t = time.perf_counter()
+                r = _real(*a, **k)
+                torch.cuda.synchronize()
+                _log.append(time.perf_counter() - t)
+                return r
+
+            mgr.restore = timed_restore
+            loop = ResilientLoop(step_fn, batch_fn, mgr, ckpt_every=LOOP_EVERY)
+            start = {k: ({kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict)
+                         else v.clone()) for k, v in init.items()}
+            monitor = HeartbeatMonitor(n_workers=1)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            final, log, restarts = loop.run(start, n_steps, injector=FailureInjector(fail_at),
+                                            monitor=monitor)
+            torch.cuda.synchronize()
+            beats = monitor._times.get(0, [])
+            check(len(beats) == min(len(log), monitor.window),
+                  f"checkpoint loop: {len(beats)} heartbeats for {len(log)} steps")
+            runs[name] = {"seconds": time.perf_counter() - t, "restarts": restarts,
+                          "steps_run": len(log), "restore_s": restores,
+                          "checkpoints": mgr.all_steps(), "final": final,
+                          "heartbeat_median_s": float(np.median(beats)),
+                          "stragglers": monitor.stragglers()}
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+    clean, failed = runs["clean"], runs["failed"]
+    check(clean["restarts"] == 0 and failed["restarts"] == 2,
+          f"checkpoint loop restarts {clean['restarts']}, {failed['restarts']}")
+    a, b = clean.pop("final"), failed.pop("final")
+    diffs = {}
+    for group in ("params", "bn", "m", "v"):
+        for k in a[group]:
+            diffs[f"{group}/{k}"] = float((a[group][k] - b[group][k]).abs().max())
+    check(int(a["adam_step"]) == int(b["adam_step"]) == n_steps, "checkpoint loop: adam step")
+    check(all(d == 0.0 for d in diffs.values()),
+          f"checkpoint loop: the restarted run differs from the clean one: {diffs}")
+    replayed = failed["steps_run"] - n_steps
+    ms_step = clean["seconds"] / n_steps * 1e3
+    launches = dict(ops.LAUNCHES)
+    emit({"phase": "checkpoint", "rel_eb": CKPT_REL_EB, "save_s": t1 - t0, "wait_s": t2 - t1,
+          "restore_s": t3 - t2, "save_device_peak_bytes": save_peak, "leaves": leaves,
+          "save_restore_launches": save_launches,
+          "loop": {"G": G, "C": cfg.channels, "batch": bs, "plane": list(SHAPE[1:]),
+                   "steps": n_steps, "ckpt_every": LOOP_EVERY, "fail_at": list(LOOP_FAILS),
+                   "runs": runs, "replayed_steps": replayed, "ms_per_step": ms_step,
+                   "restart_s": (failed["seconds"] - clean["seconds"]) / failed["restarts"],
+                   "restart_s_minus_replay": (failed["seconds"] - clean["seconds"]
+                                              - replayed * ms_step / 1e3) / failed["restarts"],
+                   "bit_equal": True, "cudnn_deterministic": True},
+          "launches": launches})
+    return launches
+
+
 def legacy_inputs(blob: bytes, dev):
     """The boundary pass's inputs for a legacy hf/hz blob: (args, kw, total
     bits); the kernel and its plain version take the same ones."""
@@ -2171,12 +2539,15 @@ def main() -> int:
         gw_interp = gwlz_mono_path(x_np, Path(tmp), "gwlz_interp", "interp")
         big_launches = bigstream_path(Path(tmp))
         serve_launches = serve_path(Path(tmp), art, gw["gwlz"][0], Path(tmp) / "field.szjx")
+        gwds_launches = gwds_path(x_np, Path(tmp), art, main_id)
+        ckpt_launches = checkpoint_path(x_np, Path(tmp))
         cli_path(Path(tmp))
     path_launches = {"main": launches, "gwlz": gw["gwlz"][2], "szjx": sz_launches,
                      "interp": interp_launches, "interp_tiled": interp_tiled_launches,
                      "gwlz_mono": mono[2], "gwlz_interp": gw_interp[2],
                      "bigstream": big_launches, "stream": stream_launches,
-                     "legacy": legacy_launches, "serve": serve_launches}
+                     "legacy": legacy_launches, "serve": serve_launches,
+                     "gwds": gwds_launches, "checkpoint": ckpt_launches}
     check(all(ls["huffman_decode"] > 0 for ls in path_launches.values()),
           "huffman_decode missed a path")
     check(all(ls["enhancer_fused"] > 0 for ls in (gw["gwlz"][2], gw["gwlz_all_groups"][2],

@@ -13,6 +13,13 @@ numpy-like handle:
     full = np.asarray(vol)                # full decode (cached once)
     roi  = vol[8:40, :, 16:32]            # tiled: decodes only the lanes it meets
 
+Multi-field snapshots persist as one ``GWDS`` envelope (named fields behind
+one offset index, docs/DATASET_FORMAT.md):
+
+    api.save("snapshot.gwds", {"temperature": vol_t, "baryon_density": vol_b})
+    ds = api.open("snapshot.gwds")        # a Dataset; fields parse on first access
+    ds["temperature"][0:16, :, :]
+
 Opening is mmap-backed and lazy (a region read pages in just the lanes it
 decodes), and handles are context managers over the mapping.
 
@@ -24,17 +31,16 @@ The default predictor is interp (SZ3-style interpolation), as in the
 reference; ``predictor="lorenzo"`` selects the Lorenzo predictor.
 :func:`compress_stream` is the out-of-core path: it streams a ``.npy``
 memmap, an array or a slab iterator into a ``GWTC`` container under a byte
-budget (Lorenzo by default, as in the reference).  Not ported yet: the
-multi-field ``Dataset`` / ``GWDS`` envelope (ROADMAP.md Queue 1 item 9); it
-raises :class:`NotImplementedError`.
+budget (Lorenzo by default, as in the reference).
 """
 from __future__ import annotations
 
+import io
 import itertools
 import mmap as _mmap
 import os
 import threading
-from collections.abc import Mapping
+from collections.abc import Iterator, Mapping
 
 import numpy as np
 import torch
@@ -43,6 +49,7 @@ from repro_torch.core.pipeline import GWLZ, GWLZStats
 from repro_torch.core.trainer import GWLZTrainConfig
 from repro_torch.errors import CorruptContainerError, CorruptLaneError, IntegrityError
 from repro_torch.exec.cache import TileCache
+from repro_torch.exec.writer import GWDSWriter, parse_gwds
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.sz import artifact as A
 from repro_torch.sz import tiled as _tiled
@@ -53,6 +60,7 @@ __all__ = [
     "CompressedVolume",
     "CorruptContainerError",
     "CorruptLaneError",
+    "Dataset",
     "DecodeStats",
     "IntegrityError",
     "compress",
@@ -68,8 +76,6 @@ _VERIFY_POLICIES = ("none", "lazy", "full")
 _CORRUPT_POLICIES = ("raise", "quarantine")
 
 GWDS_MAGIC = A.GWDS_MAGIC
-_GWDS_TODO = ("multi-field GWDS datasets are not ported yet "
-              "(ROADMAP.md Queue 1 item 9)")
 
 # Default byte cap for the per-handle decoded-tile LRU cache.
 DEFAULT_TILE_CACHE_BYTES = int(os.environ.get("REPRO_TILE_CACHE_BYTES", 256 << 20))
@@ -506,6 +512,135 @@ def compress_stream(source, out, *, eb: float | None = None, abs_eb: float | Non
 
 
 # ---------------------------------------------------------------------------
+# multi-field dataset (GWDS)
+# ---------------------------------------------------------------------------
+
+
+class Dataset(Mapping):
+    """Lazy mapping of field name -> :class:`CompressedVolume` backed by one
+    ``GWDS`` envelope (docs/DATASET_FORMAT.md).
+
+    Field blobs parse on first access, into handles that decode on
+    ``device`` (None: the CUDA device): opening a dataset reads the shared
+    offset index only, so touching one field of a many-field snapshot never
+    pays for the others.  When opened through :func:`open` the backing is
+    an mmap, field parse is lazy down to the lane level, and :meth:`close`
+    (or the context manager) closes every field handle and releases the
+    mapping."""
+
+    def __init__(self, blob, index: dict[str, tuple[int, int]], *,
+                 pipeline: GWLZ | None = None, cache_bytes: int | None = None,
+                 tile_cache: TileCache | None = None, verify: str = "lazy",
+                 on_corrupt: str = "raise", fill_value: float = 0.0, device=None):
+        self.device = resolve_device(device)
+        self._blob = blob
+        self._index = index
+        self._pipeline = pipeline
+        self._cache_bytes = cache_bytes
+        self._tile_cache = tile_cache
+        self._verify = verify
+        self._on_corrupt = on_corrupt
+        self._fill_value = fill_value
+        self._cache: dict[str, CompressedVolume] = {}
+        self._resources: tuple = ()
+        self._closed = False
+
+    @staticmethod
+    def from_bytes(blob, *, pipeline: GWLZ | None = None, cache_bytes: int | None = None,
+                   tile_cache: TileCache | None = None, verify: str = "lazy",
+                   on_corrupt: str = "raise", fill_value: float = 0.0,
+                   device=None) -> "Dataset":
+        """Parse a v1 (index first, count in the header) or v2 (index in
+        the footer) envelope's index; fields stay unparsed."""
+        index = parse_gwds(blob)
+        return Dataset(blob, index, pipeline=pipeline, cache_bytes=cache_bytes,
+                       tile_cache=tile_cache, verify=verify, on_corrupt=on_corrupt,
+                       fill_value=fill_value, device=device)
+
+    @staticmethod
+    def build(fields: Mapping) -> bytes:
+        """Serialize named volumes or artifacts into one GWDS (v2) envelope,
+        through :class:`~repro_torch.exec.writer.GWDSWriter`, so an eagerly
+        built envelope is byte-identical to a streamed one."""
+        if not fields:
+            raise ValueError("a GWDS dataset needs at least one field")
+        buf = io.BytesIO()
+        w = GWDSWriter(buf)
+        for name, vol in fields.items():
+            art = vol.artifact if isinstance(vol, CompressedVolume) else vol
+            if not isinstance(art, (SZCompressed, TiledCompressed)):
+                raise TypeError(
+                    f"GWDS field {name!r} is a {type(vol).__name__}; expected "
+                    "CompressedVolume or artifact (compress it first)")
+            w.add_field(name, art.to_bytes())
+        w.finalize()
+        return buf.getvalue()
+
+    def __getitem__(self, name: str) -> CompressedVolume:
+        if self._closed:
+            raise ValueError("operation on a closed Dataset")
+        if name not in self._cache:
+            fo, fl = self._index[name]  # raises KeyError for unknown fields
+            art = A.from_bytes(self._blob[fo : fo + fl])
+            _apply_verify(art, self._verify, self._on_corrupt, self._fill_value)
+            self._cache[name] = CompressedVolume(
+                art, pipeline=self._pipeline, cache_bytes=self._cache_bytes,
+                tile_cache=self._tile_cache, device=self.device)
+        return self._cache[name]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._index)
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def _adopt_resources(self, resources: tuple) -> None:
+        self._resources = tuple(resources)
+
+    def close(self) -> None:
+        """Close every opened field handle, then release the backing mmap.
+        Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        for vol in self._cache.values():
+            vol.close()
+        self._cache = {}
+        self._blob = b""
+        _release_resources(self._resources)
+        self._resources = ()
+
+    def __enter__(self) -> "Dataset":
+        if self._closed:
+            raise ValueError("operation on a closed Dataset")
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+    @property
+    def fields(self) -> tuple[str, ...]:
+        return tuple(self._index)
+
+    @property
+    def nbytes(self) -> int:
+        return len(self._blob)
+
+    def to_bytes(self) -> bytes:
+        return self._blob if isinstance(self._blob, bytes) else bytes(self._blob)
+
+    def size_report(self) -> dict:
+        per_field = {n: fl for n, (_fo, fl) in self._index.items()}
+        return {"fields": per_field, "index": self.nbytes - sum(per_field.values()),
+                "total": self.nbytes}
+
+    def __repr__(self) -> str:
+        return f"Dataset(GWDS, fields={list(self._index)}, nbytes={self.nbytes})"
+
+
+# ---------------------------------------------------------------------------
 # persistence: save / open (self-sniffing)
 # ---------------------------------------------------------------------------
 
@@ -513,16 +648,20 @@ def compress_stream(source, out, *, eb: float | None = None, abs_eb: float | Non
 def from_bytes(blob, *, pipeline: GWLZ | None = None, cache_bytes: int | None = None,
                tile_cache: TileCache | None = None, cache_ns=None, verify: str = "lazy",
                on_corrupt: str = "raise", fill_value: float = 0.0, decode_batcher=None,
-               device=None) -> CompressedVolume:
-    """Sniff the envelope magic and build the handle (``SZJX``/``GWTC``).
-    ``blob`` may be bytes or any buffer (a memoryview over an mmap parses
-    lazily: tiled lanes stay on disk until a decode touches them).
-    ``verify`` / ``on_corrupt`` / ``fill_value`` install the integrity
-    policy, ``tile_cache`` / ``cache_ns`` / ``decode_batcher`` the shared
-    decode state, described under :func:`open`."""
+               device=None):
+    """Sniff the envelope magic and build the reader: ``SZJX``/``GWTC`` ->
+    :class:`CompressedVolume`; ``GWDS`` -> :class:`Dataset`.  ``blob`` may
+    be bytes or any buffer (a memoryview over an mmap parses lazily: tiled
+    lanes stay on disk until a decode touches them).  ``verify`` /
+    ``on_corrupt`` / ``fill_value`` install the integrity policy,
+    ``tile_cache`` / ``cache_ns`` / ``decode_batcher`` the shared decode
+    state, described under :func:`open`."""
     device = resolve_device(device)
     if A.sniff_magic(blob) == GWDS_MAGIC:
-        raise NotImplementedError(_GWDS_TODO)
+        return Dataset.from_bytes(blob, pipeline=pipeline, cache_bytes=cache_bytes,
+                                  tile_cache=tile_cache, verify=verify,
+                                  on_corrupt=on_corrupt, fill_value=fill_value,
+                                  device=device)
     art = _apply_verify(A.from_bytes(blob), verify, on_corrupt, fill_value)
     return CompressedVolume(art, pipeline=pipeline, cache_bytes=cache_bytes,
                             tile_cache=tile_cache, cache_ns=cache_ns,
@@ -530,18 +669,19 @@ def from_bytes(blob, *, pipeline: GWLZ | None = None, cache_bytes: int | None = 
 
 
 def save(path: str | os.PathLike, obj) -> int:
-    """Write a volume handle (or bare artifact) to ``path`` as its container
-    bytes, verbatim (bytes on disk == ``vol.nbytes``); returns the byte
-    count."""
-    if isinstance(obj, CompressedVolume):
+    """Write ``obj`` to ``path``; returns the byte count on disk.  A volume
+    handle (or bare artifact) writes its container bytes verbatim (bytes on
+    disk == ``vol.nbytes``); a ``{name: volume}`` mapping (or a
+    :class:`Dataset`) writes one multi-field ``GWDS`` envelope."""
+    if isinstance(obj, Dataset):
         blob = obj.to_bytes()
     elif isinstance(obj, Mapping):
-        raise NotImplementedError(_GWDS_TODO)
-    elif isinstance(obj, (SZCompressed, TiledCompressed)):
+        blob = Dataset.build(obj)
+    elif isinstance(obj, (CompressedVolume, SZCompressed, TiledCompressed)):
         blob = obj.to_bytes()
     else:
-        raise TypeError(f"cannot save {type(obj).__name__}; expected CompressedVolume "
-                        "or artifact")
+        raise TypeError(f"cannot save {type(obj).__name__}; expected CompressedVolume, "
+                        "artifact, Dataset, or a {name: volume} mapping")
     with _builtin_open(path, "wb") as f:
         f.write(blob)
     return len(blob)
@@ -550,9 +690,11 @@ def save(path: str | os.PathLike, obj) -> int:
 def open(path: str | os.PathLike, *, pipeline: GWLZ | None = None, mmap: bool = True,
          cache_bytes: int | None = None, tile_cache: TileCache | None = None,
          cache_ns=None, verify: str = "lazy", on_corrupt: str = "raise",
-         fill_value: float = 0.0, decode_batcher=None, device=None) -> CompressedVolume:
-    """Open a compressed file (``SZJX`` or ``GWTC``; an attached GWLZ model
-    is applied on decode), sniffing the envelope to pick the decoder.
+         fill_value: float = 0.0, decode_batcher=None, device=None):
+    """Open a compressed file, sniffing the envelope to pick the decoder: a
+    :class:`CompressedVolume` for ``SZJX`` and ``GWTC`` (an attached GWLZ
+    model is applied on decode), a :class:`Dataset` for multi-field
+    ``GWDS``.
 
     By default the file is memory-mapped and parsed lazily; the handle owns
     the mapping (use it as a context manager, or ``close()``);

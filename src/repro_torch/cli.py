@@ -6,10 +6,11 @@
                               [--predictor interp|lorenzo] [--order linear|cubic]
                               [--backend ...] [--enhance --groups 8 --epochs 60]
                               [--stream [--mem-budget 256M] [--resume] [--retries 3]]
-    python -m repro_torch.cli decompress IN OUT.npy
+    python -m repro_torch.cli decompress IN OUT.npy [--field NAME]
     python -m repro_torch.cli info       PATH
     python -m repro_torch.cli region     PATH --roi "8:40,:,16:32" [--out OUT.npy]
-    python -m repro_torch.cli verify     PATH
+                              [--field NAME]
+    python -m repro_torch.cli verify     PATH [--field NAME]
     python -m repro_torch.cli serve      [NAME=]PATH ... [--port 8177]
                               [--cache-bytes 256M] [--mem-budget 256M]
                               [--on-corrupt raise|quarantine] [--batch-wait-ms 2]
@@ -20,7 +21,9 @@
 as the reference CLI makes it).  ``verify`` checks a container end to end
 (envelope structure, metadata checksum and every lane CRC) and exits
 nonzero on the first corruption.  Every subcommand works on whatever
-envelope ``api.open`` sniffs (``SZJX``/``GWTC``).  ``--predictor`` is
+envelope ``api.open`` sniffs (``SZJX``/``GWTC``/``GWDS``); ``--field``
+picks one field of a multi-field ``GWDS`` dataset (needed when it has more
+than one; ``verify`` without it checks every field).  ``--predictor`` is
 interp (the default, as in the reference) or lorenzo.  Files are
 byte-identical to the reference CLI's for the Lorenzo predictor; interp
 files open in either package (``sz/predictor.py`` states the port's float32
@@ -39,14 +42,14 @@ batch for transient faults.
 
 ``serve`` runs the multi-tenant region-decode daemon (``repro_torch.serve``)
 over the named volumes behind one shared tile cache, decoding on
-``--device``; ``--smoke`` exercises every endpoint over HTTP and exits.
+``--device``; ``--smoke`` exercises every endpoint over HTTP and exits.  A
+GWDS dataset is not a volume: ``serve`` refuses one (exit 2).
 
-Not ported yet: GWDS datasets and ``--field`` (ROADMAP.md Queue 1 item 9),
-and the ``lint`` command.
+Not ported: the ``lint`` command.
 
 Exit codes are uniform across subcommands: **0** success, **1** integrity
 failure (corrupt container / failed CRC), **2** usage error (bad
-arguments, missing files, invalid ROI, no CUDA device, a part not ported).
+arguments, missing files or fields, invalid ROI, no CUDA device).
 """
 from __future__ import annotations
 
@@ -81,9 +84,8 @@ def _device(args, what: str):
 
 
 def _open(path, what: str, args, **kw):
-    """api.open with CLI-grade errors: missing or unreadable files and parts
-    not ported are usage errors (exit 2), corrupt containers integrity
-    errors (exit 1)."""
+    """api.open with CLI-grade errors: missing or unreadable files are usage
+    errors (exit 2), corrupt containers integrity errors (exit 1)."""
     try:
         return api.open(path, device=_device(args, what), **kw)
     except OSError as e:
@@ -91,8 +93,22 @@ def _open(path, what: str, args, **kw):
     except api.IntegrityError as e:
         print(f"CORRUPT: {e}", file=sys.stderr)
         raise SystemExit(EXIT_INTEGRITY) from None
-    except NotImplementedError as e:
-        raise _fail(what, e) from None
+
+
+def _select(obj, field: str | None, what: str):
+    """Resolve api.open output (and an optional --field) to one volume
+    handle."""
+    if isinstance(obj, api.Dataset):
+        if field is None:
+            if len(obj) == 1:
+                return obj[next(iter(obj))]
+            raise _fail(what, f"GWDS dataset has fields {list(obj)}; pick one with --field")
+        if field not in obj:
+            raise _fail(what, f"no field {field!r} in dataset (fields: {list(obj)})")
+        return obj[field]
+    if field is not None:
+        raise _fail(what, "--field only applies to GWDS datasets")
+    return obj
 
 
 def parse_size(text: str) -> int:
@@ -202,7 +218,7 @@ def cmd_compress(args) -> int:
 
 
 def cmd_decompress(args) -> int:
-    vol = _open(args.input, "decompress", args)
+    vol = _select(_open(args.input, "decompress", args), args.field, "decompress")
     try:
         arr = np.asarray(vol)
     except api.IntegrityError as e:
@@ -216,6 +232,12 @@ def cmd_decompress(args) -> int:
 
 def cmd_info(args) -> int:
     vol = _open(args.path, "info", args)
+    if isinstance(vol, api.Dataset):
+        print(f"GWDS dataset: {len(vol)} fields, {vol.nbytes} bytes "
+              f"(index {vol.size_report()['index']} B)")
+        for name in vol:
+            print(f"  {name}: {vol[name]!r}")
+        return EXIT_OK
     print(repr(vol))
     art = vol.artifact
     if vol.tiled:
@@ -229,7 +251,7 @@ def cmd_info(args) -> int:
 
 
 def cmd_region(args) -> int:
-    vol = _open(args.path, "region", args)
+    vol = _select(_open(args.path, "region", args), args.field, "region")
     try:
         roi = parse_roi(args.roi)
     except ValueError as e:
@@ -253,6 +275,10 @@ def cmd_region(args) -> int:
 
 def cmd_verify(args) -> int:
     with _open(args.path, "verify", args, verify="full") as vol:
+        if isinstance(vol, api.Dataset):
+            return _verify_fields(vol, args.field)
+        if args.field is not None:
+            raise _fail("verify", "--field only applies to GWDS datasets")
         art = vol.artifact
         if not vol.tiled:
             note = "monolithic SZJX: no per-lane checksums; structural checks only"
@@ -261,6 +287,23 @@ def cmd_verify(args) -> int:
         else:
             note = "no per-lane checksums (pre-checksum container); structural checks only"
         print(f"ok: {args.path} ({note})")
+    return EXIT_OK
+
+
+def _verify_fields(ds, field: str | None) -> int:
+    """verify on a GWDS dataset: every field (or the one --field names)
+    parses and checks every lane CRC."""
+    name = None
+    try:
+        for name in [field] if field else list(ds):
+            if name not in ds:
+                raise _fail("verify", f"no field {name!r} in dataset (fields: {list(ds)})")
+            vol = ds[name]  # field parse + full lane verification
+            lanes = vol.stats.tiles_total if vol.tiled else 1
+            print(f"ok: field {name!r} ({lanes} lanes)")
+    except api.IntegrityError as e:
+        print(f"CORRUPT: field {name!r}: {e}", file=sys.stderr)
+        return EXIT_INTEGRITY
     return EXIT_OK
 
 
@@ -295,7 +338,7 @@ def cmd_serve(args) -> int:
     except api.IntegrityError as e:
         print(f"CORRUPT: {e}", file=sys.stderr)
         return EXIT_INTEGRITY
-    except NotImplementedError as e:
+    except ValueError as e:  # a GWDS dataset is not a volume
         raise _fail("serve", e) from None
     with server:
         print(f"serving {sorted(server.pool.names)} on {server.url} "
@@ -376,6 +419,7 @@ def main(argv: list[str] | None = None) -> int:
     d = sub.add_parser("decompress", help="full decode to a .npy file")
     d.add_argument("input")
     d.add_argument("output")
+    d.add_argument("--field", default=None, help="field name (GWDS datasets)")
     d.set_defaults(fn=cmd_decompress)
 
     i = sub.add_parser("info", help="envelope + size breakdown")
@@ -386,11 +430,13 @@ def main(argv: list[str] | None = None) -> int:
     r.add_argument("path")
     r.add_argument("--roi", required=True, help='e.g. "8:40,:,16:32"')
     r.add_argument("--out", default=None, help="write the ROI to a .npy file")
+    r.add_argument("--field", default=None, help="field name (GWDS datasets)")
     r.set_defaults(fn=cmd_region)
 
     v = sub.add_parser("verify", help="end-to-end integrity check "
                                       "(structure + metadata + lane CRCs)")
     v.add_argument("path")
+    v.add_argument("--field", default=None, help="field name (GWDS datasets)")
     v.set_defaults(fn=cmd_verify)
 
     s = sub.add_parser("serve", help="multi-tenant region-decode daemon (docs/SERVING.md)")

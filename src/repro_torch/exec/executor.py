@@ -32,7 +32,10 @@ errors are sticky, so a real one fails the retry again and leaves the
 journaled partial behind; nothing falls back to the plain versions or the
 CPU.  Each batch's lanes are journaled by :meth:`GWTCWriter.commit` once
 appended, so an exhausted retry leaves a *resumable* partial container
-(``resume=True`` picks up from the first uncommitted batch).
+(``resume=True`` picks up from the first uncommitted batch).  A writer on a
+GWDS envelope's shared sink (``can_rollback`` False) cannot drop a
+half-appended batch, so there each batch is appended once, with no retry:
+a failed append fails the stream.
 """
 from __future__ import annotations
 
@@ -270,16 +273,20 @@ def stream_compress(source, dest, *, tile=(64, 64, 64), rel_eb: float | None = N
                 blobs = pred.lane_bytes_batch(payload, len(ids), backend)
 
             def append_batch():
-                # drop any half-appended lanes from a previous attempt so
-                # the retry replays the whole batch from the commit point
-                writer.rollback_uncommitted()
+                if writer.can_rollback:
+                    # drop any half-appended lanes from a previous attempt so
+                    # the retry replays the whole batch from the commit point
+                    writer.rollback_uncommitted()
                 for j, lane in enumerate(blobs):
                     if write_injector is not None:
                         write_injector.maybe_fail(ids[j])
                     writer.append_lane(lane)
                 writer.commit()
 
-            retry.run(append_batch, on_retry=note_retry(bidx))
+            if writer.can_rollback:
+                retry.run(append_batch, on_retry=note_retry(bidx))
+            else:
+                append_batch()  # shared sink: no safe replay, fail fast
         finally:
             mem.sub(nbytes_held)
             with host_time_lock:

@@ -1,13 +1,17 @@
-"""Incremental, append-only ``GWTC`` v3 writer with a commit journal (port
-of ``repro/exec/writer.py::GWTCWriter``; layout in docs/TILED_FORMAT.md).
+"""Incremental, append-only container writers, port of
+``repro/exec/writer.py`` (layouts in docs/TILED_FORMAT.md and
+docs/DATASET_FORMAT.md).
 
-Header, shape and tile go out first, lanes are appended in row-major tile
-order, and :meth:`GWTCWriter.finalize` writes the extras blob, the index
-(u64 lane lengths | u32 lane CRC-32s | u32 metadata CRC) and the footer:
-nothing is buffered and nothing is seeked backwards, so a stream can be
-written through a pipe as well as a file.  ``TiledCompressed._serialize``
-routes through it, so eager and streamed bytes are identical, and both
-equal the reference's.
+Both writers emit *footer-indexed* layouts.  :class:`GWTCWriter` writes
+header, shape and tile first, appends lanes in row-major tile order, and
+:meth:`GWTCWriter.finalize` writes the extras blob, the index (u64 lane
+lengths | u32 lane CRC-32s | u32 metadata CRC) and the footer;
+:class:`GWDSWriter` appends named field blobs and writes the name index as
+a footer.  Nothing is buffered and nothing is seeked backwards, so a
+stream can be written through a pipe as well as a file.
+``TiledCompressed._serialize`` and ``api.Dataset.build`` route through
+these writers, so eager and streamed bytes are identical, and both equal
+the reference's.
 
 Fault tolerance (docs/ROBUSTNESS.md): when the destination is a *path*,
 the writer keeps a sidecar commit journal (``<path>.journal``), in the
@@ -18,8 +22,10 @@ lands, so a journaled lane is always really on disk),
 away so it can be retried, and :meth:`GWTCWriter.resume` re-opens an
 interrupted container at its last committed byte.  :meth:`finalize`
 removes the journal: a surviving journal file is exactly the marker of an
-interrupted stream.  The multi-field ``GWDSWriter`` waits for ROADMAP.md
-Queue 1 item 9.
+interrupted stream.  A ``GWTCWriter`` that streams a field into a GWDS
+envelope (:meth:`GWDSWriter.stream_field`) shares the envelope's sink: it
+writes no journal and cannot roll back (``can_rollback`` is False), so the
+streaming executor appends each batch once there and fails fast.
 """
 from __future__ import annotations
 
@@ -33,6 +39,15 @@ from repro_torch.errors import CorruptContainerError
 from repro_torch.sz import artifact as A
 from repro_torch.sz import tiled as T
 from repro_torch.sz.predictor import ORDER_IDS, ORDER_NAMES, PRED_IDS, PRED_NAMES
+
+# GWDS header: magic, version, pad x3, u32 (v1: the field count; v2:
+# reserved, the count lives in the footer: it is not known when a streaming
+# writer starts)
+_GWDS_HDR = struct.Struct("<4sB3xI")
+# GWDS index entry, after its u32 name length and name: field offset, length
+_GWDS_ENTRY = struct.Struct("<QQ")
+# GWDS v2 footer: index offset, field count, sentinel
+_GWDS_FOOTER = struct.Struct("<QI4s")
 
 # --- commit journal (sidecar <path>.journal) --------------------------------
 # header:  magic 'GWJL', version, pad, prefix_len u32, prefix bytes, crc u32
@@ -109,7 +124,8 @@ def _read_journal(jpath):
 
 class _Dest:
     """Append-only byte sink over a path or file-like; tracks bytes written
-    relative to the container start."""
+    from the start of the sink (a ``GWTC`` container embedded as a GWDS
+    field takes its container-relative footer offsets from a base mark)."""
 
     def __init__(self, dest, *, own: bool | None = None):
         if hasattr(dest, "write"):
@@ -155,16 +171,21 @@ class GWTCWriter:
     is a plain dict: attach entries (e.g. a trained GWLZ model under
     ``"gwlz"``) any time before finalize.
 
-    ``dest`` is a path or a writable file object.  Path destinations are
-    *journaled*: each :meth:`commit` fsyncs the data file, then appends a
-    checksummed block to ``<path>.journal``, making the committed prefix
-    durable and :meth:`resume`-able; :meth:`finalize` deletes the journal.
-    File objects get no journal but still track the commit point, so
-    :meth:`rollback_uncommitted` works wherever they truncate."""
+    ``dest`` is a path, a writable file object, or a GWDS envelope's shared
+    sink (a :class:`_Dest`, from :meth:`GWDSWriter.stream_field`).  Path
+    destinations are *journaled*: each :meth:`commit` fsyncs the data file,
+    then appends a checksummed block to ``<path>.journal``, making the
+    committed prefix durable and :meth:`resume`-able; :meth:`finalize`
+    deletes the journal.  File objects get no journal but still track the
+    commit point, so :meth:`rollback_uncommitted` works wherever they
+    truncate.  A shared sink gets no journal and no rollback; footer
+    offsets stay container-relative through the sink's byte count at
+    construction (``_base``).  ``on_finalize(total_bytes)`` runs after the
+    footer is written."""
 
     def __init__(self, dest, *, shape, tile, eb_abs: float,
                  backend: str = "huffman+zlib", predictor: str = "lorenzo",
-                 order: str = "cubic", levels: int = 0):
+                 order: str = "cubic", levels: int = 0, on_finalize=None):
         shape = tuple(int(d) for d in shape)
         tile = T.normalize_tile(tile, len(shape))
         self.shape, self.tile = shape, tile
@@ -175,10 +196,13 @@ class GWTCWriter:
         self.extras: dict = {}
         self._lens: list[int] = []
         self._crcs: list[int] = []
-        is_path = not hasattr(dest, "write")
+        self._on_finalize = on_finalize
+        self._shared = isinstance(dest, _Dest)
+        is_path = not self._shared and not hasattr(dest, "write")
         self._journal_path = journal_path(dest) if is_path else None
         self._journal_f = None
-        self._dest = _Dest(dest)
+        self._dest = dest if self._shared else _Dest(dest)
+        self._base = self._dest.written
         self._finalized = False
         nd = len(shape)
         hdr = T._HDR_V3.pack(T._MAGIC, T._VERSION, nd, T._BACKENDS[backend],
@@ -203,6 +227,12 @@ class GWTCWriter:
         """Lanes durably recorded by the last :meth:`commit`: a resumed
         stream restarts from exactly this point."""
         return self._committed_lanes
+
+    @property
+    def can_rollback(self) -> bool:
+        """Whether :meth:`rollback_uncommitted` is available (owned sinks
+        only: a shared GWDS envelope cannot be truncated mid-field)."""
+        return not self._shared
 
     def append_lane(self, lane) -> None:
         if self._finalized:
@@ -244,6 +274,8 @@ class GWTCWriter:
         batch being retried); returns the number of lanes dropped."""
         if self._finalized:
             raise ValueError("writer already finalized")
+        if self._shared:
+            raise ValueError("cannot roll back a writer on a shared sink")
         dropped = len(self._lens) - self._committed_lanes
         if dropped:
             del self._lens[self._committed_lanes:]
@@ -255,6 +287,8 @@ class GWTCWriter:
         """Shrink the *committed* stream to its first ``n`` lanes (resume
         alignment: a commit point mid-batch is rounded down to a batch
         boundary so the re-streamed batches reproduce the original bytes)."""
+        if self._shared:
+            raise ValueError("cannot truncate a writer on a shared sink")
         if not 0 <= n <= self._committed_lanes:
             raise ValueError(f"cannot truncate to {n} lanes; {self._committed_lanes} committed")
         del self._lens[n:]
@@ -317,10 +351,13 @@ class GWTCWriter:
         self.levels = int(levels)
         self.extras = {}
         self._lens, self._crcs = list(lens), list(crcs)
+        self._on_finalize = None
+        self._shared = False
         self._journal_path = jpath
         self._journal_f = open(jpath, "ab")
         self._dest = _Dest(f, own=True)
         self._dest.written = committed
+        self._base = 0
         self._finalized = False
         self._prefix = prefix
         self._committed_lanes = len(lens)
@@ -334,22 +371,25 @@ class GWTCWriter:
             raise ValueError("writer already finalized")
         if len(self._lens) != self.n_tiles:
             raise ValueError(f"container needs {self.n_tiles} lanes, got {len(self._lens)}")
-        extras_off = self._dest.written
+        extras_off = self._dest.written - self._base
         extras_blob = T._pack_extras(self.extras)
         self._dest.write(extras_blob)
-        index_off = self._dest.written
+        index_off = self._dest.written - self._base
         self._dest.write(np.asarray(self._lens, np.uint64).tobytes())
         self._dest.write(np.asarray(self._crcs, np.uint32).tobytes())
         meta_crc = zlib.crc32(extras_blob, zlib.crc32(self._prefix)) & 0xFFFFFFFF
         self._dest.write(struct.pack("<I", meta_crc))
         self._dest.write(T._FOOTER_V3.pack(extras_off, index_off))
         self._finalized = True
-        total = self._dest.written
-        self._dest.close()
+        total = self._dest.written - self._base
+        if not self._shared:
+            self._dest.close()
         if self._journal_f is not None:
             self._journal_f.close()
             self._journal_f = None
             os.unlink(self._journal_path)
+        if self._on_finalize is not None:
+            self._on_finalize(total)
         return total
 
     def abort(self) -> None:
@@ -360,7 +400,7 @@ class GWTCWriter:
         if self._journal_f is not None:
             self._journal_f.close()
             self._journal_f = None
-        if not self._finalized:
+        if not self._finalized and not self._shared:
             self._dest.close()
 
     def __enter__(self) -> "GWTCWriter":
@@ -371,3 +411,144 @@ class GWTCWriter:
             self.finalize()
         elif exc_type is not None:
             self.abort()
+
+
+class GWDSWriter:
+    """Streaming multi-field ``GWDS`` v2 writer.
+
+    Fields are appended one at a time, either whole (:meth:`add_field` with
+    a volume, an artifact or bytes) or streamed in place
+    (:meth:`stream_field` returns a :class:`GWTCWriter` that writes the
+    field's lanes straight into the envelope), so a many-field snapshot
+    never needs two fields in memory at once.  The name index is written
+    as a footer on :meth:`finalize`."""
+
+    def __init__(self, dest):
+        self._dest = _Dest(dest)
+        self._index: list[tuple[str, int, int]] = []  # (name, offset, length)
+        self._names: set[str] = set()
+        self._streaming: str | None = None
+        self._finalized = False
+        self._dest.write(_GWDS_HDR.pack(A.GWDS_MAGIC, A.GWDS_VERSION, 0))
+
+    def _begin(self, name: str) -> int:
+        if self._finalized:
+            raise ValueError("writer already finalized")
+        if self._streaming is not None:
+            raise ValueError(f"field {self._streaming!r} is still streaming; finalize it first")
+        if name in self._names:
+            raise ValueError(f"duplicate GWDS field {name!r}")
+        return self._dest.written
+
+    def _end(self, name: str, off: int, length: int) -> None:
+        self._index.append((name, off, length))
+        self._names.add(name)
+
+    def add_field(self, name: str, obj) -> None:
+        """Append one complete field (CompressedVolume, artifact, or bytes)."""
+        off = self._begin(name)
+        blob = obj if isinstance(obj, (bytes, bytearray, memoryview)) else obj.to_bytes()
+        self._dest.write(bytes(blob))
+        self._end(name, off, self._dest.written - off)
+
+    def stream_field(self, name: str, **gwtc_kwargs) -> GWTCWriter:
+        """Open a :class:`GWTCWriter` that streams one tiled field straight
+        into the envelope (pass it to ``stream_compress`` as ``dest``); the
+        field is recorded when that writer finalizes."""
+        off = self._begin(name)
+        self._streaming = name
+
+        def done(total: int) -> None:
+            self._streaming = None
+            self._end(name, off, total)
+
+        return GWTCWriter(self._dest, on_finalize=done, **gwtc_kwargs)
+
+    def finalize(self) -> int:
+        """Write the index and footer; returns the envelope's size."""
+        if self._finalized:
+            raise ValueError("writer already finalized")
+        if self._streaming is not None:
+            raise ValueError(f"field {self._streaming!r} is still streaming")
+        if not self._index:
+            raise ValueError("a GWDS dataset needs at least one field")
+        index_off = self._dest.written
+        for name, off, length in self._index:
+            nb = name.encode()
+            self._dest.write(struct.pack("<I", len(nb)) + nb + _GWDS_ENTRY.pack(off, length))
+        self._dest.write(_GWDS_FOOTER.pack(index_off, len(self._index), A.GWDS_SENTINEL))
+        self._finalized = True
+        total = self._dest.written
+        self._dest.close()
+        return total
+
+    def __enter__(self) -> "GWDSWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None and not self._finalized:
+            self.finalize()
+        elif exc_type is not None:
+            self._dest.close()
+
+
+def _read_gwds_index(blob, off: int, n_fields: int, limit: int,
+                     region: str) -> dict[str, tuple[int, int]]:
+    """``n_fields`` index entries from ``off``: name -> (offset, length).  A
+    field that ends past ``limit`` (the end of the ``region``) is corrupt."""
+    index: dict[str, tuple[int, int]] = {}
+    for _ in range(n_fields):
+        (nlen,) = struct.unpack_from("<I", blob, off)
+        off += 4
+        name = bytes(blob[off : off + nlen]).decode()
+        off += nlen
+        fo, fl = _GWDS_ENTRY.unpack_from(blob, off)
+        off += _GWDS_ENTRY.size
+        if fo + fl > limit:
+            raise CorruptContainerError(
+                f"GWDS field {name!r} extends past the {region}: truncated file?",
+                offset=off - _GWDS_ENTRY.size, expected=f"<= {int(limit)}",
+                actual=int(fo + fl))
+        index[name] = (int(fo), int(fl))
+    return index
+
+
+def parse_gwds(blob) -> dict[str, tuple[int, int]]:
+    """A ``GWDS`` envelope's index: name -> (offset, length).
+
+    v1 keeps the index after the header and the field count in it; v2 (what
+    :class:`GWDSWriter` writes) keeps both in the footer.  Accepts any buffer
+    (bytes or a memoryview over an mmap); only the header, the footer and
+    the index bytes are touched.  Damage raises ``CorruptContainerError``
+    with the reference's messages."""
+    try:
+        magic, ver, n_fields = _GWDS_HDR.unpack_from(blob, 0)
+        if magic != A.GWDS_MAGIC:
+            raise CorruptContainerError("bad GWDS magic", offset=0, expected=A.GWDS_MAGIC,
+                                        actual=bytes(magic))
+        if ver == 1:
+            return _read_gwds_index(blob, _GWDS_HDR.size, n_fields, len(blob), "blob")
+        if ver != A.GWDS_VERSION:
+            raise CorruptContainerError("unsupported GWDS version", offset=4,
+                                        expected=(1, A.GWDS_VERSION), actual=int(ver))
+    except struct.error as e:
+        raise CorruptContainerError(f"truncated or corrupt GWDS envelope: {e}",
+                                    offset=0) from e
+    floor = _GWDS_HDR.size + _GWDS_FOOTER.size
+    if len(blob) < floor:
+        raise CorruptContainerError("truncated GWDS v2 envelope", offset=0,
+                                    expected=f">= {floor} bytes", actual=len(blob))
+    foot = len(blob) - _GWDS_FOOTER.size
+    index_off, n_fields, sentinel = _GWDS_FOOTER.unpack_from(blob, foot)
+    if sentinel != A.GWDS_SENTINEL:
+        raise CorruptContainerError("truncated or corrupt GWDS v2 envelope (bad footer)",
+                                    offset=len(blob) - 4, expected=A.GWDS_SENTINEL,
+                                    actual=bytes(sentinel))
+    if index_off > foot:
+        raise CorruptContainerError("corrupt GWDS v2 envelope (index offset out of range)",
+                                    offset=foot, expected=f"<= {foot}", actual=int(index_off))
+    try:
+        return _read_gwds_index(blob, index_off, n_fields, index_off, "payload")
+    except struct.error as e:
+        raise CorruptContainerError(f"truncated GWDS v2 index: {e}",
+                                    offset=int(index_off)) from e

@@ -1,6 +1,17 @@
-"""Runtime fault tolerance (port of ``repro/runtime``).  ``ResilientLoop``
-and the elastic restore wait for the checkpoint manager (ROADMAP.md Queue 1
-item 9)."""
-from repro_torch.runtime.fault import FailureInjector, RetryPolicy
+"""Runtime fault tolerance and elastic restore (port of ``repro/runtime``)."""
+from repro_torch.runtime.elastic import plan_remesh, reshard_restore
+from repro_torch.runtime.fault import (
+    FailureInjector,
+    HeartbeatMonitor,
+    ResilientLoop,
+    RetryPolicy,
+)
 
-__all__ = ["FailureInjector", "RetryPolicy"]
+__all__ = [
+    "plan_remesh",
+    "reshard_restore",
+    "FailureInjector",
+    "HeartbeatMonitor",
+    "ResilientLoop",
+    "RetryPolicy",
+]

@@ -219,8 +219,13 @@ class VolumePool:
             if vol.decode_batcher is None:
                 vol.decode_batcher = self.batcher
         else:
-            vol = api.open(spec, tile_cache=self.cache, cache_ns=name, **self._open_kw)
-            owned = True
+            obj = api.open(spec, tile_cache=self.cache, cache_ns=name, **self._open_kw)
+            if isinstance(obj, api.Dataset):
+                obj.close()
+                raise ValueError(
+                    f"{spec!r} is a GWDS dataset; register each field as its own volume "
+                    "(open the field and pass the handle)")
+            vol, owned = obj, True
         with self._lock:
             if name in self._volumes:
                 if owned:

@@ -203,9 +203,10 @@ def test_entry_points_without_device_need_cuda(volumes, tmp_path):
             call()
 
 
-def test_parts_not_ported_raise(volumes, field, tmp_path):
-    """GWDS (item 9) still raises; streaming (item 7) is ported and writes the
-    reference's stream bytes."""
+def test_gwds_and_stream_round_trip_as_the_reference(volumes, field, tmp_path):
+    """The parts once not ported: streaming writes the reference's stream
+    bytes, and a GWDS save/open round trip writes the reference's envelope
+    and decodes each field as the reference does."""
     src = tmp_path / "x.npy"
     np.save(src, field)
     rep = api.compress_stream(str(src), tmp_path / "x.gwtc", eb=1e-3, tile=(8, 8, 8),
@@ -214,9 +215,16 @@ def test_parts_not_ported_raise(volumes, field, tmp_path):
                                 mem_budget=64 << 10)
     assert rep.n_batches == rrep.n_batches > 1
     assert (tmp_path / "x.gwtc").read_bytes() == (tmp_path / "r.gwtc").read_bytes()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        api.save(tmp_path / "d.gwds", {"t": volumes["szjx"][0]})
-    with pytest.raises(NotImplementedError, match="item 9"):
+    fields = {"t": volumes["szjx"][0], "rho": volumes["gwtc"][0]}
+    n = api.save(tmp_path / "d.gwds", fields)
+    rn = rapi.save(tmp_path / "r.gwds", {"t": volumes["szjx"][1], "rho": volumes["gwtc"][1]})
+    assert n == rn and (tmp_path / "d.gwds").read_bytes() == (tmp_path / "r.gwds").read_bytes()
+    with api.open(tmp_path / "d.gwds", device=CPU) as ds, rapi.open(tmp_path / "r.gwds") as rds:
+        assert isinstance(ds, api.Dataset) and ds.fields == rds.fields == ("t", "rho")
+        for name in ds:
+            np.testing.assert_array_equal(np.asarray(ds[name]), np.asarray(rds[name]))
+            np.testing.assert_array_equal(ds[name][2:9, :, 3], rds[name][2:9, :, 3])
+    with pytest.raises(api.CorruptContainerError, match="unsupported GWDS version"):
         api.from_bytes(b"GWDS" + bytes(12), device=CPU)
 
 

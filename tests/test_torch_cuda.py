@@ -678,3 +678,118 @@ def test_serve_http_on_the_card(cuda, tmp_path):
     assert not errors, errors[0]
     assert m["requests"] == 40 and m["errors"] == 0
     assert all(ops.LAUNCHES[k] > 0 for k in ("huffman_decode", "group_hist", "enhancer_fused"))
+
+
+def test_gwds_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A GWDS envelope written on the card (one whole field, one streamed
+    into the shared sink) has the CPU's bytes and decodes on the card to the
+    CPU's values; a dataset's fields decode on its device."""
+    from repro_torch import api
+    from repro_torch.data import nyx_like_field
+    from repro_torch.exec import GWDSWriter, stream_compress
+
+    x = nyx_like_field((40, 40, 40), "temperature", seed=6)
+    kw = dict(rel_eb=1e-3, tile=(16, 16, 16), mem_budget=1 << 20)
+    for dev in ("cuda", "cpu"):
+        vol = api.compress(x, eb=1e-3, tiled=True, tile=(16,) * 3, predictor="lorenzo",
+                           device=dev)
+        w = GWDSWriter(tmp_path / f"{dev}.gwds")
+        w.add_field("t", vol)
+        gw = w.stream_field("s", shape=x.shape, tile=(16,) * 3, eb_abs=vol.eb_abs)
+        ops.reset_launches()
+        stream_compress(x, gw, device=dev, **kw)
+        if dev == "cuda":
+            assert ops.LAUNCHES["huffman_encode"] > 0
+        w.finalize()
+    blob = (tmp_path / "cuda.gwds").read_bytes()
+    assert blob == (tmp_path / "cpu.gwds").read_bytes()
+    with api.open(tmp_path / "cuda.gwds") as ds, \
+            api.open(tmp_path / "cpu.gwds", device="cpu") as cds:
+        assert ds["s"].device.type == "cuda"
+        ops.reset_launches()
+        for name in ("t", "s"):
+            assert np.array_equal(np.asarray(ds[name]), np.asarray(cds[name]))
+        assert ops.LAUNCHES["huffman_decode"] > 0
+
+
+def test_checkpoint_gwlz_leaves_on_the_card(cuda, tmp_path):
+    """compress_tensor on the card (both branches, the GWLZ one through the
+    rank fold) decodes within the bound, and its blob decodes on the CPU;
+    the async save compresses on its own thread and restores onto the
+    card."""
+    from repro_torch.checkpoint import CheckpointManager, compress_tensor, decompress_tensor
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    w = torch.randn(256, 384, generator=g, device="cuda") * 0.02
+    eb = 1e-4 * float(w.max() - w.min())
+    bound = eb * (1 + 1e-5) + 2.0**-23 * float(w.abs().max())
+    ops.reset_launches()
+    for kw in (dict(), dict(enhance_threshold=0, epochs=1)):
+        blob = compress_tensor(w, **kw)
+        back = decompress_tensor(blob)
+        assert back.device.type == "cuda" and back.shape == w.shape
+        assert float((back - w).abs().max()) <= bound
+        cpu = decompress_tensor(blob, device="cpu")
+        assert float((cpu - w.cpu()).abs().max()) <= bound
+    assert ops.LAUNCHES["group_hist"] > 0 and ops.LAUNCHES["enhancer_fused"] > 0
+    state = {"w": w, "emb": torch.randn(300, 256, generator=g, device="cuda").to(torch.bfloat16),
+             "step": torch.tensor(3, device="cuda")}
+    m = CheckpointManager(tmp_path, gwlz_rel_eb=1e-4, async_save=True)
+    m.save(1, state)
+    state["w"].mul_(2.0)  # the host copy was taken before save returned
+    m.wait()
+    out = m.restore({k: torch.zeros_like(v) for k, v in state.items()})
+    assert all(v.device.type == "cuda" for v in out.values())
+    assert out["emb"].dtype == torch.bfloat16 and int(out["step"]) == 3
+    assert float((out["w"] - w / 2).abs().max()) <= bound
+
+
+def test_resilient_loop_on_the_card_replays_exactly(cuda, tmp_path):
+    """The enhancer's training step under ResilientLoop on the card: a run
+    with two injected failures ends bit for bit equal to a clean run (cuDNN
+    deterministic)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.enhancer import GroupEnhancers
+    from repro_torch.core.trainer import train_step
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import FailureInjector, ResilientLoop
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    xs = torch.rand(16, 32, 32, generator=g, device=dev)
+    rs = 0.01 * torch.randn(16, 32, 32, generator=g, device=dev)
+    edges = torch.linspace(0, 1, 5, device=dev)
+    ids = ops.group_hist_op(xs, edges)[0]
+    rscale = torch.full((4,), 0.03, device=dev)
+    enh = GroupEnhancers(4, device=dev)
+
+    def step_fn(s, step):
+        enh.load(s["params"])
+        opt = {"step": int(s["n"]), "m": s["m"], "v": s["v"]}
+        idx = torch.arange(step % 4 * 4, step % 4 * 4 + 4, device=dev)
+        train_step(enh, opt, xs[idx], rs[idx], ids[idx], edges, rscale, 1e-3, n_groups=4,
+                   residual_learning=True)
+        return {"params": {k: p.detach().clone() for k, p in enh.params().items()},
+                "m": opt["m"], "v": opt["v"], "n": torch.tensor(opt["step"], device=dev)}, {}
+
+    def run(name, fail_at):
+        opt = adamw.init(enh.params())
+        start = {"params": {k: p.detach().clone() for k, p in
+                            GroupEnhancers(4, device=dev).params().items()},
+                 "m": opt["m"], "v": opt["v"], "n": torch.tensor(0, device=dev)}
+        loop = ResilientLoop(step_fn, lambda step: step, CheckpointManager(tmp_path / name),
+                             ckpt_every=5)
+        return loop.run(start, 20, injector=FailureInjector(fail_at))
+
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        a, _, r0 = run("clean", set())
+        b, _, r1 = run("failed", {7, 13})
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+    assert (r0, r1) == (0, 2) and int(b["n"]) == 20
+    for k in a["params"]:
+        assert torch.equal(a["params"][k], b["params"][k])
+        assert torch.equal(a["m"][k], b["m"][k]) and torch.equal(a["v"][k], b["v"][k])

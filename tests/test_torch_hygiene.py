@@ -46,6 +46,7 @@ def test_port_imports_without_jax_in_a_fresh_interpreter():
             "import repro_torch.core.convert, repro_torch.optim.schedule\n"
             "import repro_torch.api, repro_torch.cli, repro_torch.exec.cache\n"
             "import repro_torch.exec, repro_torch.runtime.fault\n"
+            "import repro_torch.checkpoint, repro_torch.runtime\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,

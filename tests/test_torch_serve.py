@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from repro import api as rapi
+from repro import cli as rcli
 from repro import serve as rserve
 from repro_torch import api, cli
 from repro_torch.data import nyx_like_field
@@ -460,9 +461,44 @@ def test_cli_usage_errors_exit_2(tmp_path, tiled_vol):
                        "--eb", "1e-3"]) == 2
     assert _exit_code(["compress", "synthetic:temperature:8", str(tmp_path / "o.gwtc"),
                        "--eb", "1e-3", "--resume"]) == 2
+    # a valid GWDS dataset is not a volume: the pool's ValueError is a usage
+    # error here (the reference's CLI lets the same ValueError escape)
     gwds = tmp_path / "d.gwds"
-    gwds.write_bytes(b"GWDS" + bytes(12))
+    api.save(gwds, {"t": tiled_vol})
     assert _exit_code(["serve", f"d={gwds}", "--port", "0", "--smoke"]) == 2
+
+
+def test_pool_refuses_a_gwds_dataset_as_the_reference_does(tmp_path, tiled_vol):
+    gwds = tmp_path / "d.gwds"
+    api.save(gwds, {"t": tiled_vol})
+    with pytest.raises(ValueError) as port:
+        VolumePool({"d": str(gwds)}, device=CPU)
+    with pytest.raises(ValueError) as ref:
+        rserve.VolumePool({"d": str(gwds)})
+    assert str(port.value) == str(ref.value)
+    assert "is a GWDS dataset; register each field as its own volume" in str(port.value)
+    # a field of the dataset, opened and passed as a handle, serves
+    with api.open(gwds, device=CPU) as ds:
+        pool = VolumePool({"t": ds["t"]}, device=CPU)
+        np.testing.assert_array_equal(pool.region("t", "0:4,0:8,0:8")[0],
+                                      np.asarray(tiled_vol)[0:4, 0:8, 0:8])
+        pool.close()
+
+
+def test_cli_serve_corrupt_gwds_is_an_integrity_error(tmp_path, capsys):
+    """A damaged envelope fails with its own error before the dataset check,
+    in both packages: CORRUPT, exit 1."""
+    gwds = tmp_path / "z.gwds"
+    gwds.write_bytes(b"GWDS" + bytes(12))
+    argv = ["serve", f"z={gwds}", "--port", "0", "--smoke"]
+    assert _exit_code(argv) == 1
+    port_err = capsys.readouterr().err
+    try:
+        ref_rc = rcli.main(argv)
+    except SystemExit as e:
+        ref_rc = e.code
+    assert ref_rc == 1 and port_err == capsys.readouterr().err
+    assert port_err.startswith("CORRUPT: unsupported GWDS version")
 
 
 def test_cli_integrity_errors_exit_1(tmp_path, tiled_vol):
