@@ -142,9 +142,10 @@ Phases (any failure raises and the script exits non-zero):
               write, stream, open, decode and region times, the envelope's
               bytes and size_report, and launches;
 12d. checkpoint -- (a) a seeded training state on the card (proj float32
-              [4096, 4096] and experts [8, 1024, 2048]: the GWLZ branch, 30
-              epochs, G = 8, the 2-D one by the rank fold; emb bfloat16
-              [32000, 128]: SZ interp; norm [4096] and an int64 step: exact)
+              [4096, 4096]: the SZ branch, as every 2-D leaf; experts
+              [8, 1024, 2048]: the GWLZ branch, 30 epochs, G = 8; emb
+              bfloat16 [32000, 128]: SZ interp; norm [4096] and an int64
+              step: exact)
               saved by an async CheckpointManager(gwlz_rel_eb=1e-4), waited
               for and restored into like-shaped tensors on the card: every
               compressed leaf within eb (1 + 1e-5) plus one float32 ulp of
@@ -152,9 +153,7 @@ Phases (any failure raises and the script exits non-zero):
               where the GWLZ gate kept a group; bfloat16 also its cast's
               half ulp), exact leaves bit-equal, dtypes and devices kept;
               prints the save (host copy), wait and restore seconds and
-              each leaf's bytes on disk against raw; then proj alone
-              through the SZ branch (2-D, no fold, no enhancers), within eb,
-              with its seconds and bytes.  (b) a ResilientLoop over
+              each leaf's bytes on disk against raw.  (b) a ResilientLoop over
               core/trainer.py::train_step (G = 20, C = 9, batch 10 of the
               szjx decode's 512x512 planes and residuals), 40 steps, a
               checkpoint every 10, once clean and once with failures
@@ -164,6 +163,35 @@ Phases (any failure raises and the script exits non-zero):
               step run (up to the window); prints ms a step, the seconds a
               restart costs, and each run's median heartbeat and
               stragglers;
+12e. gwlz_dist -- the distributed GWLZ step (launch/gwlz_dist.py) at the
+              gwlz-nyx widths, G = 32, C = 9, 512x512 slices, DIST_BATCH
+              slices a step (gwlz_nyx's global batch is 512: cut to fit one
+              card): x the szjx decode's slices, r the field minus them,
+              edges compute_edges(x, 32), rscale the per-group max |r|;
+              DIST_STEPS steps with gradient compression off, then on.
+              Checks: finite losses, group_hist launched once a step, and
+              grad_compress.apply through a one-rank NCCL group (tcp on
+              localhost) equal bit for bit to the single-shard apply.
+              Prints ms a step for each run, the device peak, and the
+              gradients' int8 code bytes against their float32 bytes;
+12f. lm_train -- granite-3-8b at full width (d 4096, 32 heads, kv 8,
+              head_dim 128, ff 12800, vocab 49155), 4 of its 40 layers
+              (~1.0 B parameters), batch 4 x seq 2048: (a) ResilientLoop
+              over launch/steps.py's step with bf16 moments, 20 steps, a
+              plain checkpoint every 10, once clean and once with a failure
+              at step 13, under deterministic algorithms: the loss falls
+              and the restarted run ends bit-equal to the clean one; (b)
+              five steps each with bf16 and int8 moments, synchronized and
+              timed one by one (int8 diverges within a dozen steps in both
+              packages, so the loop runs bf16); (c) the trained embedding
+              [49155, 4096] alone through compress_tensor at rel_eb 1e-4
+              (the SZ branch) within its bound; (d) the reference test's
+              command through ``python -m repro_torch.launch.train
+              --reduced`` on the card, exit 0.  Prints ms a step, tokens/s,
+              the share of the bf16 dense peak (6 N tokens over the step
+              time), save, wait and restore seconds, the seconds a restart
+              costs, the device peak, and the embedding's ratio, seconds
+              and error over eb;
 13. cli     -- ``python -m repro_torch.cli`` in subprocesses on
               synthetic:temperature:64, tiled (tile 16) and monolithic,
               Lorenzo: compress -> info -> region -> decompress -> verify;
@@ -203,6 +231,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -211,6 +240,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS reads its workspace setting when the process first uses it; the
+# lm_train phase runs under deterministic algorithms, which need this one
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 / int32 rate
@@ -261,7 +293,19 @@ SERVE_BUDGET = 256 << 20  # cache and admission budget: the CLI's defaults
 SERVE_WAIT_MS = 2.0  # the batcher's window: the CLI's default
 STREAM_BUDGET = 256 << 20  # the reference's default compress_stream mem_budget
 STREAM_EPOCHS = 5  # stream (e): the reservoir's 32 tiles, 2,048 slices of 64x64
-CKPT_REL_EB = 1e-4  # checkpoint (a): the reference test's bound for compressed leaves
+CKPT_REL_EB = 1e-4  # checkpoint (a), lm_train (c): the reference test's bound
+# gwlz_dist: steps a run; slices a step.  gwlz_nyx's global batch is 512
+# and DistGWLZConfig's default 64: at 64 autograd keeps ~4 float32 copies of
+# the [64, 32, 9, 512, 512] hidden values (~77 GB); at 32 the grouped conv's
+# output passes 2**31 elements, past cuDNN's 32-bit indexing; 16 peaks at
+# 33.8 GB (H100)
+DIST_STEPS, DIST_BATCH = 5, 16
+LM_ARCH, LM_LAYERS, LM_BATCH, LM_SEQ = "granite-3-8b", 4, 4, 2048  # lm_train: 4 of 40 layers
+LM_STEPS, LM_EVERY, LM_FAIL, LM_LR, LM_TIMED = 20, 10, 13, 3e-4, 5
+# the loop's moments: int8 diverges within a dozen steps in both packages
+# (tests/test_torch_lm.py), so it is timed alone for LM_TIMED steps
+LM_MOMENTS = "bf16"
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16
 LOOP_STEPS, LOOP_EVERY, LOOP_FAILS = 40, 10, (17, 31)  # checkpoint (b): the reference test's
 ENHANCE_RTOL = 1e-5  # |kernel - plain| <= ENHANCE_RTOL * (1 + max|plain|)
 # a parent commit's tree, unpacked with git archive: its Lorenzo kernels are
@@ -1565,12 +1609,12 @@ def ckpt_bound(x, eb: float, bf16: bool, enhanced: bool = False):
 
 def checkpoint_path(x_np, tmp: Path) -> dict:
     """(a) GWLZ-compressed training state held on the card: a seeded state
-    (a 4096 x 4096 projection and [8, 1024, 2048] experts, float32, through
-    the GWLZ branch, the 2-D one by the rank fold; a bfloat16 [32000, 128]
+    (a 4096 x 4096 projection, float32, through the SZ branch, as every
+    2-D leaf; [8, 1024, 2048] experts, float32, through the GWLZ branch; a
+    bfloat16 [32000, 128]
     embedding through the SZ branch; a norm vector and an int64 step,
     exact) saved by an async CheckpointManager(gwlz_rel_eb=1e-4), waited
-    for and restored into like-shaped tensors on the card; the projection
-    also goes through the SZ branch alone, to weigh the rank fold.  (b) A
+    for and restored into like-shaped tensors on the card.  (b) A
     ResilientLoop over the port's enhancer training step (G = 20, C = 9,
     batch 10 of the szjx decode's 512 x 512 planes and their residuals), 40
     steps with a checkpoint every 10: once clean, once with failures
@@ -1581,7 +1625,7 @@ def checkpoint_path(x_np, tmp: Path) -> dict:
     import torch
 
     from repro_torch import api
-    from repro_torch.checkpoint import CheckpointManager, compress_tensor, decompress_tensor
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import grouping
     from repro_torch.core.enhancer import GroupEnhancers
     from repro_torch.core.pipeline import deserialize_model
@@ -1649,25 +1693,13 @@ def checkpoint_path(x_np, tmp: Path) -> dict:
             row["branch"] = "exact"
         leaves[k] = row
     save_launches = dict(ops.LAUNCHES)
-    # the same projection through the SZ branch (2-D interp, no fold, no
-    # enhancers): what the rank fold and the GWLZ training buy or cost it
-    proj = state["proj"]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    sz_blob = compress_tensor(proj, rel_eb=CKPT_REL_EB, enhance_threshold=proj.numel() + 1)
-    torch.cuda.synchronize()
-    sz_s = time.perf_counter() - t
-    sz_out = decompress_tensor(sz_blob)
-    eb = leaves["proj"]["eb"]
-    sz_err = float((sz_out - proj).abs().max())
-    check(sz_err <= float(ckpt_bound(proj, eb, False)),
-          f"checkpoint: proj through the SZ branch past eb ({sz_err}, eb {eb})")
-    leaves["proj"]["sz_branch"] = {
-        "seconds": sz_s, "disk_bytes": len(sz_blob),
-        "of_raw": len(sz_blob) / leaves["proj"]["raw_bytes"], "err_over_eb": sz_err / eb,
-        "sz_shape": list(SZCompressed.from_bytes(sz_blob[6 + 7 + 16:]).shape)}
-    leaves["proj"]["of_raw"] = leaves["proj"]["disk_bytes"] / leaves["proj"]["raw_bytes"]
-    del state, target, out, proj, sz_out
+    check(leaves["proj"]["branch"] == "sz" and leaves["experts"]["branch"] == "gwlz",
+          f"checkpoint: proj went down the {leaves['proj']['branch']} branch, experts the "
+          f"{leaves['experts']['branch']} one (a 2-D leaf takes the SZ branch)")
+    for row in leaves.values():
+        if "disk_bytes" in row:
+            row["of_raw"] = row["disk_bytes"] / row["raw_bytes"]
+    del state, target, out
     # (b) the restart loop over the enhancer's training step
     with api.open(tmp / "field.szjx") as vol:
         recon = torch.from_numpy(np.array(vol)).to(dev)
@@ -1770,6 +1802,271 @@ def checkpoint_path(x_np, tmp: Path) -> dict:
                    "restart_s_minus_replay": (failed["seconds"] - clean["seconds"]
                                               - replayed * ms_step / 1e3) / failed["restarts"],
                    "bit_equal": True, "cudnn_deterministic": True},
+          "launches": launches})
+    return launches
+
+
+def gwlz_dist_path(x_np, tmp: Path) -> dict:
+    """The distributed GWLZ step (``launch/gwlz_dist.py``) at the gwlz-nyx
+    widths (G = 32, C = 9, 512 x 512 slices), a batch of DIST_BATCH slices
+    (gwlz_nyx's global batch is 512) of the szjx phase's Lorenzo decode,
+    residuals against the field, edges from ``compute_edges`` of the whole
+    decode, rscale its per-group max |r|: DIST_STEPS steps with gradient
+    compression off, then as many with it on, each run from the same seeded
+    init on consecutive slices.  Checks: finite losses, one group_hist
+    launch a step, and ``grad_compress.apply`` through a one-rank NCCL
+    group equal bit for bit to the single-shard ``apply``.  Returns the
+    launches of the two runs."""
+    import dataclasses
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.core import grouping
+    from repro_torch.core.trainer import _per_group_scale
+    from repro_torch.kernels import ops
+    from repro_torch.launch.gwlz_dist import DistGWLZConfig, build_state, make_dist_train_step
+    from repro_torch.optim import grad_compress
+
+    dev = torch.device("cuda")
+    with api.open(tmp / "field.szjx") as vol:
+        xs = torch.from_numpy(np.array(vol)).to(dev)
+    rs = torch.from_numpy(x_np).to(dev) - xs
+    base = dataclasses.replace(DistGWLZConfig(), batch_slices=DIST_BATCH)
+    G, B = base.n_groups, base.batch_slices
+    edges = grouping.compute_edges(xs, G)
+    ids, _ = ops.group_hist_op(xs, edges)
+    rscale = _per_group_scale(rs, ids, G)
+    del ids
+    runs, launches = {}, {k: 0 for k in ops.LAUNCHES}
+    for on in (False, True):
+        cfg = dataclasses.replace(base, grad_compress=on)
+        state = build_state(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+        step = make_dist_train_step(cfg, device=dev)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(DIST_STEPS):
+            batch = {"x": xs[i * B:(i + 1) * B], "r": rs[i * B:(i + 1) * B], "edges": edges,
+                     "rscale": rscale}
+            t = time.perf_counter()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(float(loss.sum()))
+        check(all(np.isfinite(losses)), f"gwlz_dist (compress {on}): losses {losses}")
+        check(ops.LAUNCHES["group_hist"] == DIST_STEPS,
+              f"gwlz_dist: group_hist launched {ops.LAUNCHES['group_hist']} times in "
+              f"{DIST_STEPS} steps")
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        runs["compressed" if on else "plain"] = {
+            "ms_per_step": float(np.median(times[1:])) * 1e3, "first_step_ms": times[0] * 1e3,
+            "loss_sums": losses, "device_peak_bytes": torch.cuda.max_memory_allocated()}
+        params = state["params"]
+        del state
+    numel = sum(p.numel() for p in params.values())
+    # grad_compress.apply through a one-rank NCCL group == the single-shard apply
+    g = torch.Generator(device=dev).manual_seed(1)
+    grads = {k: torch.randn(p.shape, generator=g, device=dev) for k, p in params.items()}
+    ef = {k: 0.01 * torch.randn(p.shape, generator=g, device=dev) for k, p in params.items()}
+    gc_cfg = grad_compress.GradCompressConfig(rel_eb=base.gc_rel_eb)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        single = grad_compress.apply(grads, ef, gc_cfg)
+        reduced = grad_compress.apply(grads, ef, gc_cfg, group=dist.group.WORLD)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for side in (0, 1):
+        for k in grads:
+            check(torch.equal(single[side][k], reduced[side][k]),
+                  f"gwlz_dist: apply through a 1-rank NCCL group differs at {k}")
+    emit({"phase": "gwlz_dist", "G": G, "C": base.channels, "batch_slices": B,
+          "slice": list(SHAPE[1:]), "steps": DIST_STEPS, "gc_rel_eb": base.gc_rel_eb,
+          "runs": runs, "params": numel,
+          "grad_code_bytes": numel + 4 * len(params), "grad_fp32_bytes": 4 * numel,
+          "nccl_one_rank_equal": True, "launches": launches})
+    return launches
+
+
+def lm_train_path(tmp: Path) -> dict:
+    """The dense-decoder LM's training on the card: granite-3-8b at full
+    width (d 4096, 32 heads, kv 8, head_dim 128, ff 12800, vocab 49155),
+    LM_LAYERS of its 40 layers, batch LM_BATCH x seq LM_SEQ of the token
+    pipeline, under deterministic algorithms.  (b), run first: LM_TIMED
+    steps each with bf16 and int8 moments, every step synchronized and
+    timed.  (a) ResilientLoop over ``launch/steps.py``'s step with
+    LM_MOMENTS moments, LM_STEPS steps, a plain checkpoint every LM_EVERY:
+    once clean, once with a failure injected at step LM_FAIL; checks the
+    loss falls and the restarted run ends bit-equal to the clean one.  The
+    three runs start from one seeded init, so their first losses are
+    equal.  (c) The trained
+    embedding [49155, 4096] alone through ``compress_tensor`` at rel_eb
+    1e-4 (the SZ branch, as every 2-D leaf), within its bound.  (d) The
+    reference test's command through ``python -m repro_torch.launch.train``
+    on the card (reduced), which must exit 0 after its restart.  Returns
+    the phase's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager, compress_tensor, decompress_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import TrainOptions, make_train_step
+    from repro_torch.launch.train import deterministic, make_loop_step, prng_key
+    from repro_torch.models.decoder import DecoderLM, default_pattern
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import FailureInjector, HeartbeatMonitor, ResilientLoop
+    from repro_torch.sz.szjax import SZCompressed
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS,
+                              pattern=default_pattern(LM_LAYERS, rope_theta=1e4))
+    model = DecoderLM(cfg, device=dev)
+    pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab, LM_BATCH, LM_SEQ, seed=0))
+    tokens = LM_BATCH * LM_SEQ
+
+    def batch_fn(step):
+        return {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(step).items()}
+
+    def fresh(moments: str):
+        """The seeded initial state and the loop's step, the same every run."""
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        step_fn, adam_cfg = make_train_step(model, cfg, TrainOptions(
+            lr=LM_LR, warmup=max(LM_STEPS // 10, 1), total_steps=LM_STEPS,
+            moment_dtype=moments))
+        return make_loop_step(step_fn), (params, adamw.init(params, adam_cfg), prng_key(1))
+
+    def timed(mgr, name: str, log: dict):
+        real = getattr(mgr, name)
+
+        def call(*a, **k):
+            t = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            log.setdefault(name, []).append(time.perf_counter() - t)
+            return out
+
+        setattr(mgr, name, call)
+
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, finals = {}, {}
+    with deterministic(dev):
+        # (b) steps timed one by one (first: they also warm the card up)
+        step_ms, step_losses = {}, {}
+        for moments in ("bf16", "int8"):
+            loop_step, state = fresh(moments)
+            n_params = sum(p.numel() for _, p in tree.leaves(state[0]))
+            times, ls = [], []
+            for i in range(LM_TIMED):
+                batch = batch_fn(i)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, m = loop_step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                ls.append(float(m["loss"]))
+            step_ms[moments] = float(np.median(times[1:])) * 1e3
+            step_losses[moments] = ls
+            del state, loop_step
+        for name, fail_at in (("clean", set()), ("failed", {LM_FAIL})):
+            loop_step, state = fresh(LM_MOMENTS)
+            mgr = CheckpointManager(tmp / f"lm_{name}", keep=1)
+            io = {}
+            for method in ("save", "wait", "restore"):
+                timed(mgr, method, io)
+            monitor = HeartbeatMonitor(n_workers=1)
+            loop = ResilientLoop(loop_step, batch_fn, mgr, ckpt_every=LM_EVERY)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            final, log, restarts = loop.run(state, LM_STEPS, injector=FailureInjector(fail_at),
+                                            monitor=monitor)
+            torch.cuda.synchronize()
+            runs[name] = {"seconds": time.perf_counter() - t, "restarts": restarts,
+                          "steps_run": len(log), "losses": [float(m["loss"]) for m in log],
+                          "save_s": io.get("save", []), "wait_s": io.get("wait", []),
+                          "restore_s": io.get("restore", []),
+                          "heartbeat_median_s": float(np.median(monitor._times.get(0, [0])))}
+            finals[name] = final
+            del state, final, loop, loop_step
+            shutil.rmtree(tmp / f"lm_{name}")
+        clean, failed = runs["clean"], runs["failed"]
+        check(clean["restarts"] == 0 and failed["restarts"] == 1,
+              f"lm_train restarts {clean['restarts']}, {failed['restarts']}")
+        losses = clean["losses"]
+        check(all(np.isfinite(losses)) and min(losses[-5:]) < losses[0],
+              f"lm_train: the loss did not fall: {losses}")
+        differ = [path for (path, a), (_, b) in zip(tree.leaves(finals["clean"]),
+                                                    tree.leaves(finals["failed"]))
+                  if not torch.equal(torch.as_tensor(a), torch.as_tensor(b))]
+        check(not differ, f"lm_train: the restarted run differs from the clean one at {differ}")
+        emb = finals["clean"][0]["embed"].detach()
+        del finals
+        check(step_losses["bf16"][0] == step_losses["int8"][0] == losses[0],
+              "lm_train: the first loss differs between runs from the same init")
+    peak = torch.cuda.max_memory_allocated()
+    train_launches = dict(ops.LAUNCHES)
+    # (c) the trained embedding through compress_tensor (the SZ branch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    blob = compress_tensor(emb, rel_eb=CKPT_REL_EB)
+    torch.cuda.synchronize()
+    emb_s = time.perf_counter() - t
+    art = SZCompressed.from_bytes(blob[6 + len("bfloat16") + 16:])
+    back = decompress_tensor(blob)
+    xf = emb.float()
+    eb = CKPT_REL_EB * float(xf.max() - xf.min())
+    err = (back.float() - xf).abs()
+    check("gwlz" not in art.extras and back.dtype == torch.bfloat16,
+          "lm_train: the embedding did not take the SZ branch")
+    check(bool((err <= ckpt_bound(xf, eb, True)).all()),
+          f"lm_train: the embedding past its bound ({float(err.max())}, eb {eb})")
+    embedding = {"shape": list(emb.shape), "dtype": "bfloat16", "seconds": emb_s,
+                 "disk_bytes": len(blob), "of_raw_bf16": len(blob) / (2 * emb.numel()),
+                 "of_fp32": len(blob) / (4 * emb.numel()), "eb": eb,
+                 "err_over_eb": float(err.max()) / eb, "branch": "sz"}
+    del emb, back, xf, err
+    launches = dict(ops.LAUNCHES)
+    # (d) the reference test's command through the CLI on the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+                        "--reduced", "--steps", "40", "--batch", "4", "--seq", "16",
+                        "--lr", "3e-3", "--ckpt-every", "8", "--ckpt-dir", str(tmp / "lm_cli"),
+                        "--inject-failure-at", "12", "--gwlz-ckpt-eb", "1e-4"],
+                       env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t
+    check(r.returncode == 0 and "restarts=1" in r.stdout,
+          f"lm_train: the driver exited {r.returncode}: {r.stdout[-1000:]} {r.stderr[-2000:]}")
+    ms = clean["seconds"] / LM_STEPS * 1e3
+    emit({"phase": "lm_train", "arch": LM_ARCH, "layers": f"{LM_LAYERS} of 40",
+          "d_model": cfg.d_model, "heads": cfg.attn.n_heads, "kv_heads": cfg.attn.n_kv_heads,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab, "params": n_params, "batch": LM_BATCH,
+          "seq": LM_SEQ, "moments": LM_MOMENTS, "steps": LM_STEPS, "ckpt_every": LM_EVERY,
+          "fail_at": LM_FAIL, "runs": runs, "bit_equal": True,
+          "loop_ms_per_step": ms,
+          "restart_s": (failed["seconds"] - clean["seconds"]) / failed["restarts"],
+          "timed_ms_per_step": step_ms, "timed_losses": step_losses,
+          "tokens_per_s": tokens / step_ms[LM_MOMENTS] * 1e3,
+          "bf16_dense_peak_share": 6 * n_params * tokens / (step_ms[LM_MOMENTS] / 1e3)
+          / BF16_OPS_PER_S,
+          "device_peak_bytes": peak, "train_launches": train_launches,
+          "embedding": embedding, "cli": {"seconds": cli_s, "stdout": r.stdout.strip()[-300:]},
           "launches": launches})
     return launches
 
@@ -2541,15 +2838,19 @@ def main() -> int:
         serve_launches = serve_path(Path(tmp), art, gw["gwlz"][0], Path(tmp) / "field.szjx")
         gwds_launches = gwds_path(x_np, Path(tmp), art, main_id)
         ckpt_launches = checkpoint_path(x_np, Path(tmp))
+        dist_launches = gwlz_dist_path(x_np, Path(tmp))
+        lm_launches = lm_train_path(Path(tmp))
         cli_path(Path(tmp))
     path_launches = {"main": launches, "gwlz": gw["gwlz"][2], "szjx": sz_launches,
                      "interp": interp_launches, "interp_tiled": interp_tiled_launches,
                      "gwlz_mono": mono[2], "gwlz_interp": gw_interp[2],
                      "bigstream": big_launches, "stream": stream_launches,
                      "legacy": legacy_launches, "serve": serve_launches,
-                     "gwds": gwds_launches, "checkpoint": ckpt_launches}
-    check(all(ls["huffman_decode"] > 0 for ls in path_launches.values()),
-          "huffman_decode missed a path")
+                     "gwds": gwds_launches, "checkpoint": ckpt_launches,
+                     "gwlz_dist": dist_launches, "lm_train": lm_launches}
+    # gwlz_dist runs no codec; lm_train's one compressed leaf is zlib-coded
+    check(all(ls["huffman_decode"] > 0 for p, ls in path_launches.items()
+              if p not in ("gwlz_dist", "lm_train")), "huffman_decode missed a path")
     check(all(ls["enhancer_fused"] > 0 for ls in (gw["gwlz"][2], gw["gwlz_all_groups"][2],
                                                  mono[2], gw_interp[2])),
           "enhancer_fused missed a path")

@@ -25,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.kernels.ops import resolve_device
 
 _SEP = "/"
@@ -33,29 +34,15 @@ GWLZ_MIN_ELEMS = 65536
 _GWLZ_DTYPES = ("float32", "bfloat16")
 
 
-def _leaves(tree, prefix=()):
-    """(path, leaf) pairs in ``jax.tree_util``'s order: dict keys sorted,
-    sequences by index; None is an empty subtree."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], prefix + (str(k),))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, prefix + (str(i),))
-    elif tree is not None:
-        yield _SEP.join(prefix), tree
+def _leaves(tree):
+    """(key, leaf) pairs in ``jax.tree_util``'s order, keys ``/``-joined."""
+    for path, leaf in tree_util.leaves(tree):
+        yield _SEP.join(path), leaf
 
 
-def _rebuild(tree, values: dict, prefix=()):
+def _rebuild(tree, values: dict):
     """``tree``'s structure with each leaf replaced by ``values[key]``."""
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, values, prefix + (str(k),)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [_rebuild(v, values, prefix + (str(i),)) for i, v in enumerate(tree)]
-        return type(tree)(out)
-    if tree is None:
-        return None
-    return values[_SEP.join(prefix)]
+    return tree_util.rebuild(tree, lambda path, _: values[_SEP.join(path)])
 
 
 def _as_tensor(leaf) -> torch.Tensor:

@@ -1,0 +1,33 @@
+"""Architecture registry, port of ``repro/configs/__init__.py``:
+``--arch <id>`` resolves here.  It lists the architectures the port can
+build: the dense GQA decoders, which share one code path."""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = ("granite-3-8b", "yi-9b", "llama3-405b")
+
+_MODULES = {"granite-3-8b": "granite_3_8b", "yi-9b": "yi_9b", "llama3-405b": "llama3_405b"}
+
+
+def arch_module(arch_id: str):
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+
+
+def get_config(arch_id: str, reduced: bool = False):
+    return arch_module(arch_id).get_config(reduced=reduced)
+
+
+def get_family(arch_id: str) -> str:
+    return arch_module(arch_id).FAMILY
+
+
+def build_model(arch_id: str, reduced: bool = False, *, device=None):
+    """Returns (model, cfg) for the arch, on ``device`` (None: the CUDA
+    device, which must exist)."""
+    from repro_torch.models.decoder import DecoderLM
+
+    cfg = get_config(arch_id, reduced=reduced)
+    return DecoderLM(cfg, device=device), cfg

@@ -203,9 +203,10 @@ def test_gwck_blobs_cross_both_ways(shape, dtype):
 
 
 def test_rank_fold_lets_a_2d_leaf_take_the_gwlz_branch():
-    """The reference's GWLZ branch raises on a 2-D leaf; the port folds it to
-    (1, H, W), keeps the shape in the header, and the reference decodes the
-    blob within the bound."""
+    """The reference's GWLZ branch raises on a 2-D leaf; the port sends a
+    leaf of rank below 3 down the SZ branch at any size (no rank fold: the
+    fold cost a 4096 x 4096 leaf its ratio on the card), keeps the shape in
+    the header, and the reference decodes the blob within the bound."""
     rng = np.random.default_rng(2)
     w = rng.normal(size=(64, 96)).astype(np.float32)
     kw = dict(enhance_threshold=0, epochs=1)
@@ -216,15 +217,18 @@ def test_rank_fold_lets_a_2d_leaf_take_the_gwlz_branch():
 
     head = 6 + len("float32") + 8 * 2
     art = SZCompressed.from_bytes(blob[head:])
-    assert "gwlz" in art.extras and tuple(art.shape) == (1, 64, 96)
+    assert "gwlz" not in art.extras and tuple(art.shape) == (64, 96)
+    assert blob == compress_tensor(torch.from_numpy(w), rel_eb=REL_EB, device=CPU,
+                                   enhance_threshold=w.size + 1)  # the SZ branch's bytes
     mine = decompress_tensor(blob, device=CPU)
     assert tuple(mine.shape) == (64, 96) and mine.dtype == torch.float32
     assert _within(_f32(mine), w)
     theirs = rck.decompress_tensor(blob)
     assert theirs.shape == (64, 96) and _within(theirs, w, cross=True)
-    # rank 1 folds to (1, 1, N) the same way
+    # rank 1 takes the SZ branch the same way
     v = rng.normal(size=(700,)).astype(np.float32)
     one = compress_tensor(v, rel_eb=REL_EB, device=CPU, **kw)
+    assert "gwlz" not in SZCompressed.from_bytes(one[6 + len("float32") + 8:]).extras
     assert _within(_f32(decompress_tensor(one, device=CPU)), v)
 
 
@@ -268,8 +272,8 @@ def test_gwlz_branch_where_groups_are_kept_is_held_to_twice_eb(monkeypatch):
 
 
 def test_coarse_grid_passes_eb_by_float32_rounding_in_both_packages():
-    """Known reference behaviour: on this 3-D leaf (the shape the port's rank
-    fold gives a 512 x 512 weight) the interp SZ of both packages decodes a
+    """Known reference behaviour: on this 3-D leaf (a 512 x 512 weight with
+    a leading axis of 1) the interp SZ of both packages decodes a
     coarse-grid point 7.2e-5 eb past eb, within one float32 ulp of max|x|."""
     from repro.sz.szjax import SZCompressor as RSZ
 

@@ -713,10 +713,10 @@ def test_gwds_on_the_card_matches_the_cpu(cuda, tmp_path):
 
 
 def test_checkpoint_gwlz_leaves_on_the_card(cuda, tmp_path):
-    """compress_tensor on the card (both branches, the GWLZ one through the
-    rank fold) decodes within the bound, and its blob decodes on the CPU;
-    the async save compresses on its own thread and restores onto the
-    card."""
+    """compress_tensor on the card (both branches: the SZ one for a 2-D
+    leaf at any size, the GWLZ one for a 3-D leaf) decodes within the
+    bound, and its blob decodes on the CPU; the async save compresses on
+    its own thread and restores onto the card."""
     from repro_torch.checkpoint import CheckpointManager, compress_tensor, decompress_tensor
 
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -724,13 +724,14 @@ def test_checkpoint_gwlz_leaves_on_the_card(cuda, tmp_path):
     eb = 1e-4 * float(w.max() - w.min())
     bound = eb * (1 + 1e-5) + 2.0**-23 * float(w.abs().max())
     ops.reset_launches()
-    for kw in (dict(), dict(enhance_threshold=0, epochs=1)):
-        blob = compress_tensor(w, **kw)
+    for v, kw in ((w, dict()), (w, dict(enhance_threshold=0, epochs=1)),
+                  (w.reshape(2, 128, 384), dict(enhance_threshold=0, epochs=1))):
+        blob = compress_tensor(v, **kw)
         back = decompress_tensor(blob)
-        assert back.device.type == "cuda" and back.shape == w.shape
-        assert float((back - w).abs().max()) <= bound
+        assert back.device.type == "cuda" and back.shape == v.shape
+        assert float((back - v).abs().max()) <= bound
         cpu = decompress_tensor(blob, device="cpu")
-        assert float((cpu - w.cpu()).abs().max()) <= bound
+        assert float((cpu - v.cpu()).abs().max()) <= bound
     assert ops.LAUNCHES["group_hist"] > 0 and ops.LAUNCHES["enhancer_fused"] > 0
     state = {"w": w, "emb": torch.randn(300, 256, generator=g, device="cuda").to(torch.bfloat16),
              "step": torch.tensor(3, device="cuda")}
@@ -793,3 +794,86 @@ def test_resilient_loop_on_the_card_replays_exactly(cuda, tmp_path):
     for k in a["params"]:
         assert torch.equal(a["params"][k], b["params"][k])
         assert torch.equal(a["m"][k], b["m"][k]) and torch.equal(a["v"][k], b["v"][k])
+
+
+def test_grad_compress_on_the_card_matches_the_cpu(cuda):
+    """quantize_leaf on the card: the scale within 4 float32 ulps of the
+    CPU's (the RMS reduction's order), codes equal but at half-integer
+    ties, every code within the bound."""
+    from repro_torch.optim import grad_compress as gc
+
+    rng = np.random.default_rng(0)
+    g = rng.normal(size=(32, 3, 3, 1, 9)).astype(np.float32)
+    e = (rng.normal(size=g.shape) * 0.01).astype(np.float32)
+    for dt in ("int8", "int16"):
+        cfg = gc.GradCompressConfig(rel_eb=0.05, code_dtype=dt)
+        cc, cs, _ = gc.quantize_leaf(torch.from_numpy(g), torch.from_numpy(e), cfg)
+        dc, ds, de = gc.quantize_leaf(torch.from_numpy(g).to(cuda), torch.from_numpy(e).to(cuda),
+                                      cfg)
+        assert dc.device.type == "cuda" and dc.dtype == cc.dtype and de.dtype == torch.float32
+        a, b = np.float32(cs).view(np.int32), np.float32(ds.cpu()).view(np.int32)
+        assert abs(int(a) - int(b)) <= 4
+        assert int((dc.cpu().to(torch.int32) - cc.to(torch.int32)).abs().max()) <= 1
+
+
+def test_dist_gwlz_step_on_the_card_follows_the_cpu(cuda):
+    """Two distributed GWLZ steps with gradient compression on the card from
+    the CPU's initial state: losses within rtol 1e-4 (cuDNN against the CPU
+    convolutions), one group_hist launch a step."""
+    from repro_torch.core import grouping
+    from repro_torch.core.enhancer import GroupEnhancers
+    from repro_torch.data import nyx_like_field
+    from repro_torch.launch import gwlz_dist
+
+    x = nyx_like_field((16, 32, 32), "temperature", seed=0)
+    cfg = gwlz_dist.DistGWLZConfig(n_groups=4, volume=32, batch_slices=8, grad_compress=True)
+    batch = {"x": x[:8], "r": x[:8] * np.float32(1e-3),
+             "edges": grouping.compute_edges(torch.from_numpy(x), 4),
+             "rscale": np.full(4, np.abs(x).max() * 1e-3, np.float32)}
+    losses = {}
+    for dev in ("cpu", cuda):
+        enh = GroupEnhancers(4, generator=torch.Generator().manual_seed(0), device=dev)
+        state = gwlz_dist.build_state(cfg, enhancers=enh)
+        step = gwlz_dist.make_dist_train_step(cfg, device=dev)
+        ops.reset_launches()
+        losses[str(dev)] = [step(state, batch)[1].cpu().numpy() for _ in range(2)]
+        if dev != "cpu":
+            assert ops.LAUNCHES["group_hist"] == 2
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=1e-9)
+
+
+def test_lm_train_step_on_the_card_follows_the_cpu(cuda):
+    """The reduced granite in float32 from the CPU's initial parameters:
+    three steps with fp32 moments on the card within rtol 1e-4 of the
+    CPU's losses, and three with int8 moments replayed bit for bit on the
+    card (their stochastic rounding draws from the card's generator)."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import TrainOptions, make_train_step
+    from repro_torch.launch.train import deterministic, make_loop_step, prng_key
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_config("granite-3-8b", reduced=True), dtype="fp32")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (4, 17)))
+    init = DecoderLM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    losses = {}
+    with deterministic(cuda):
+        for run, dev, moments in (("cpu", "cpu", "fp32"), ("cuda", cuda, "fp32"),
+                                  ("int8", cuda, "int8"), ("int8_again", cuda, "int8")):
+            model = DecoderLM(cfg, device=dev)
+            params = tree.rebuild(init, lambda _, p: p.detach().clone().to(dev))
+            step, adam_cfg = make_train_step(model, cfg, TrainOptions(
+                lr=1e-3, warmup=1, total_steps=3, moment_dtype=moments))
+            state = (params, adamw.init(params, adam_cfg), prng_key(1))
+            loop_step = make_loop_step(step)
+            batch = {"tokens": toks[:, :-1].to(dev), "targets": toks[:, 1:].to(dev)}
+            out = []
+            for _ in range(3):
+                state, m = loop_step(state, batch)
+                out.append(float(m["loss"]))
+            losses[run] = out
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    assert losses["int8"] == losses["int8_again"]

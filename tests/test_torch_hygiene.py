@@ -47,6 +47,10 @@ def test_port_imports_without_jax_in_a_fresh_interpreter():
             "import repro_torch.api, repro_torch.cli, repro_torch.exec.cache\n"
             "import repro_torch.exec, repro_torch.runtime.fault\n"
             "import repro_torch.checkpoint, repro_torch.runtime\n"
+            "import repro_torch.launch.train, repro_torch.launch.gwlz_dist\n"
+            "import repro_torch.configs.gwlz_nyx, repro_torch.optim.grad_compress\n"
+            "from repro_torch.configs import ARCH_IDS, get_config\n"
+            "[get_config(a) for a in ARCH_IDS]\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -80,6 +84,22 @@ def test_module_constructors_without_device_need_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert enhancer.GroupEnhancers(2, device="cpu").w1.device.type == "cpu"
+
+
+def test_training_entry_points_without_device_need_cuda():
+    """The LM and the distributed GWLZ state follow the entry-point rule."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from repro_torch.configs import build_model
+    from repro_torch.launch import gwlz_dist
+
+    cfg = gwlz_dist.DistGWLZConfig(n_groups=2)
+    for call in (lambda: build_model("granite-3-8b", reduced=True),
+                 lambda: gwlz_dist.build_state(cfg), lambda: gwlz_dist.make_dist_train_step(cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    model, _ = build_model("granite-3-8b", reduced=True, device="cpu")
+    assert model.device.type == "cpu"
 
 
 def test_no_try_around_kernel_launches():
