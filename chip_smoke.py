@@ -192,6 +192,33 @@ Phases (any failure raises and the script exits non-zero):
               time), save, wait and restore seconds, the seconds a restart
               costs, the device peak, and the embedding's ratio, seconds
               and error over eb;
+12g. lm_serve -- LM serving (launch/serve.py, models/ decode caches)
+              in five checks, each a JSON line with ms a decode step,
+              tokens/s, KV-cache bytes and the device peak: (a) gemma3-1b
+              at full width and depth (26 layers, d 1152, 4 heads, kv 1,
+              head_dim 256, vocab 262144, 5:1 sliding(512):global) through
+              ``launch.serve.main`` in bf16, batch 8, ctx 2048, prompt 1024,
+              256 generated (the 512-slot rings wrap twice, the global
+              caches fill 1,279 of 2,048), then one steady step under
+              torch.profiler (device operations a step, device busy share)
+              and the weight-plus-cache bytes a step reads over the step
+              time as a share of 3.35 TB/s; (b) gemma3-1b at full
+              width in float32, its first 6 layers (one 5:1 period; depth
+              is the only cut), batch 2, 1,024 positions (two 512-query
+              blocks, so the sliding layers' prefill is banded): ``apply``
+              against the per-step ``decode_step`` logits, max relative
+              error < 2e-3;
+              (c) llama4-scout-17b-a16e and deepseek-v3-671b at full width,
+              their first 4 layers (llama4: 3 chunked(8192) + 1 NoPE
+              global, all MoE 16e top-1 + shared; deepseek: 3 dense + 1 MoE
+              256e top-8, MLA), bf16, batch 4, 64 decode steps: finite
+              logits, the MLA cache latent-sized; (d) the three reduced
+              configs in float32, 12 decode steps on the card against the
+              CPU's within 1e-4 max|logits|; (e) ``python -m
+              repro_torch.launch.serve --arch gemma3-1b --reduced`` on the
+              card, exit 0.  No kernel of ``csrc/`` runs here (attention,
+              MoE dispatch and MLA are plain torch, as they are plain
+              ``jnp`` in the reference), and none may be launched;
 13. cli     -- ``python -m repro_torch.cli`` in subprocesses on
               synthetic:temperature:64, tiled (tile 16) and monolithic,
               Lorenzo: compress -> info -> region -> decompress -> verify;
@@ -306,6 +333,16 @@ LM_STEPS, LM_EVERY, LM_FAIL, LM_LR, LM_TIMED = 20, 10, 13, 3e-4, 5
 # (tests/test_torch_lm.py), so it is timed alone for LM_TIMED steps
 LM_MOMENTS = "bf16"
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16
+# lm_serve (a): gemma3-1b at full depth through the serving driver
+SERVE_ARCH, SERVE_BATCH, SERVE_CTX, SERVE_PROMPT, SERVE_GEN = "gemma3-1b", 8, 2048, 1024, 256
+# (b): 1,024 positions are two 512-query blocks, so the sliding layers'
+# prefill is banded (640 would be one block, unbanded); one 5:1 period of
+# layers keeps the 1,024 sequential decode steps inside the time limit
+SERVE_PREFILL, SERVE_PREFILL_LAYERS = 1024, 6
+SERVE_MOE = (("llama4-scout-17b-a16e", 4), ("deepseek-v3-671b", 4))  # (c): arch, layers kept
+SERVE_MOE_BATCH, SERVE_MOE_PROMPT, SERVE_MOE_GEN, SERVE_MOE_CTX = 4, 16, 49, 1024  # 64 steps
+SERVE_CPU_STEPS = 12  # (d)
+PROFILED = 4  # (a): decode steps in the torch.profiler window, a step reported
 LOOP_STEPS, LOOP_EVERY, LOOP_FAILS = 40, 10, (17, 31)  # checkpoint (b): the reference test's
 ENHANCE_RTOL = 1e-5  # |kernel - plain| <= ENHANCE_RTOL * (1 + max|plain|)
 # a parent commit's tree, unpacked with git archive: its Lorenzo kernels are
@@ -2071,6 +2108,244 @@ def lm_train_path(tmp: Path) -> dict:
     return launches
 
 
+def tree_bytes(t) -> int:
+    from repro_torch import tree
+
+    return sum(x.numel() * x.element_size() for _, x in tree.leaves(t))
+
+
+def lm_serve_path() -> None:
+    """LM serving on the card (module docstring, phase 12g): five checks,
+    each emitting its JSON line.  Checks that no kernel of ``csrc/`` is
+    launched (the path has none)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models.attention import MASK_SLIDING
+    from repro_torch.models.decoder import DecoderLM
+
+    dev = torch.device("cuda")
+    ops.reset_launches()
+
+    def fresh_peak() -> int:
+        """Resets the peak; returns the bytes still allocated (the base of
+        the next check's peak)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    # (a) gemma3-1b at full depth through the driver, then one profiled step
+    cfg = get_config(SERVE_ARCH)
+    resident = fresh_peak()
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        gen = serve.main(["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH), "--ctx",
+                          str(SERVE_CTX), "--prompt-len", str(SERVE_PROMPT), "--gen-len",
+                          str(SERVE_GEN)])
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    said = dict(kv.split("=", 1) for kv in out.getvalue().split() if "=" in kv)
+    ms, tok_s = float(said["ms/step"]), float(said["tokens/s"].replace(",", ""))
+    check(gen.shape == (SERVE_BATCH, SERVE_GEN) and gen.min() >= 0 and gen.max() < cfg.vocab,
+          f"lm_serve (a): generated {gen.shape}, range [{gen.min()}, {gen.max()}]")
+    model = DecoderLM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    cache = model.init_cache(SERVE_BATCH, SERVE_CTX, dtype=cfg.compute_dtype)
+    step = make_decode_step(model)
+    tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device=dev)
+    positions = torch.arange(64, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for p in range(16):  # warm-up
+            step(params, cache, {"token": tok, "pos": positions[p]})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in range(16, 48):
+            step(params, cache, {"token": tok, "pos": positions[p]})
+        torch.cuda.synchronize()
+        steady_ms = (time.perf_counter() - t0) / 32 * 1e3
+        # PROFILED steps under torch.profiler after a dropped warm-up step
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        warm_then_trace = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=warm_then_trace) as prof:
+            step(params, cache, {"token": tok, "pos": positions[48]})
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            for p in range(49, 49 + PROFILED):
+                step(params, cache, {"token": tok, "pos": positions[p]})
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3 / PROFILED
+            prof.step()
+    # device-side events only (kernels, memcpy, memset), not the step's own span
+    on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")]
+    dev_ops = sum(e.count for e in on_dev) / PROFILED
+    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3 / PROFILED
+    top = sorted(((e.key, e.self_device_time_total / 1e3 / PROFILED) for e in on_dev),
+                 key=lambda kv: -kv[1])[:8]
+    check(dev_ops > 0, "lm_serve (a): the profiler saw no device operation")
+    w_bytes, kv_bytes = tree_bytes(params), tree_bytes(cache)
+    n_params = sum(x.numel() for _, x in tree.leaves(params))
+    emit({"phase": "lm_serve", "check": "a", "arch": SERVE_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": cfg.attn.n_heads, "kv_heads": cfg.attn.n_kv_heads,
+          "head_dim": cfg.attn.head_dim, "vocab": cfg.vocab, "params": n_params, "dtype": "bf16",
+          "batch": SERVE_BATCH, "ctx": SERVE_CTX, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+          "steps": SERVE_PROMPT + SERVE_GEN - 1, "driver_s": wall,
+          "ms_per_step": ms, "tokens_per_s": tok_s, "steady_ms_per_step": steady_ms,
+          "weight_bytes": w_bytes, "kv_cache_bytes": kv_bytes,
+          "hbm_share": (w_bytes + kv_bytes) / (ms / 1e3) / HBM_BYTES_PER_S,
+          "steady_hbm_share": (w_bytes + kv_bytes) / (steady_ms / 1e3) / HBM_BYTES_PER_S,
+          "profiled_step": {"steps": PROFILED, "ms": prof_ms, "device_ops": dev_ops,
+                            "device_busy_ms": busy_ms, "device_busy_share": busy_ms / prof_ms,
+                            "busy_share_of_steady_step": busy_ms / steady_ms,
+                            "top_device_ms": dict(top)},
+          "device_peak_bytes": peak, "resident_before_bytes": resident,
+          "driver_stdout": out.getvalue().strip()[-300:]})
+    del params, cache, model
+
+    # (b) decode == prefill at full width, float32, past the window
+    full_cfg = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(full_cfg, dtype="fp32", remat=False, n_layers=SERVE_PREFILL_LAYERS,
+                              pattern=full_cfg.pattern[:SERVE_PREFILL_LAYERS])
+    model = DecoderLM(cfg, device=dev)
+    resident = fresh_peak()
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, SERVE_PREFILL)).astype(np.int32)).to(dev)
+    positions = torch.arange(SERVE_PREFILL, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full, _, _ = model.apply(params, toks, positions)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        cache = model.init_cache(2, SERVE_PREFILL, dtype=torch.float32)
+        dec = torch.empty_like(full)
+        t0 = time.perf_counter()
+        for p in range(SERVE_PREFILL):
+            dec[:, p], cache = model.decode_step(params, cache, toks[:, p:p + 1], positions[p])
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        rel = float((full - dec).abs().max()) / float(full.abs().max())
+    check(bool(torch.isfinite(full).all()) and rel < 2e-3,
+          f"lm_serve (b): decode != prefill, max relative error {rel}")
+    emit({"phase": "lm_serve", "check": "b", "arch": SERVE_ARCH, "dtype": "fp32", "batch": 2,
+          "layers": f"{SERVE_PREFILL_LAYERS} of {full_cfg.n_layers}",
+          "reduced": [f"depth {full_cfg.n_layers} -> {SERVE_PREFILL_LAYERS} layers (one 5:1 "
+                      "period)"],
+          "positions": SERVE_PREFILL, "window": max(sp.window for sp in cfg.pattern),
+          "banded_layers": sum(sp.mask_mode == MASK_SLIDING for sp in cfg.pattern),
+          "max_rel_err": rel, "bound": 2e-3, "prefill_s": prefill_s,
+          "ms_per_step": dec_s / SERVE_PREFILL * 1e3,
+          "tokens_per_s": 2 * SERVE_PREFILL / dec_s, "kv_cache_bytes": tree_bytes(cache),
+          "device_peak_bytes": torch.cuda.max_memory_allocated(),
+              "resident_before_bytes": resident})
+    del params, cache, full, dec, model
+
+    # (c) llama4-scout and deepseek-v3 at full width, reduced depth
+    for arch, layers in SERVE_MOE:
+        full_cfg = get_config(arch)
+        cfg = dataclasses.replace(full_cfg, n_layers=layers, pattern=full_cfg.pattern[:layers])
+        model = DecoderLM(cfg, device=dev)
+        resident = fresh_peak()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cache = model.init_cache(SERVE_MOE_BATCH, SERVE_MOE_CTX, dtype=cfg.compute_dtype)
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (SERVE_MOE_BATCH, SERVE_MOE_PROMPT)).astype(np.int32)).to(dev)
+        n_steps = SERVE_MOE_PROMPT + SERVE_MOE_GEN - 1
+        with torch.no_grad():
+            serve.generate(make_decode_step(model), params, cache, prompt[:, :2], 1)  # warm-up
+            cache = model.init_cache(SERVE_MOE_BATCH, SERVE_MOE_CTX, dtype=cfg.compute_dtype)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen, logits = serve.generate(make_decode_step(model), params, cache, prompt,
+                                         SERVE_MOE_GEN)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        check(bool(torch.isfinite(logits).all()) and tuple(gen.shape) == (SERVE_MOE_BATCH,
+                                                                         SERVE_MOE_GEN),
+              f"lm_serve (c) {arch}: non-finite logits or generated {tuple(gen.shape)}")
+        shapes = {"/".join(path): list(x.shape) for path, x in tree.leaves(cache)
+                  if path[-1] != "pos"}
+        if cfg.attn.mla is not None:
+            m = cfg.attn.mla
+            check(all(sh[1:] == [SERVE_MOE_BATCH, SERVE_MOE_CTX,
+                                 m.kv_lora if p.endswith("c_kv") else m.rope_dim]
+                      for p, sh in shapes.items()),
+                  f"lm_serve (c) {arch}: the MLA cache is not latent-sized: {shapes}")
+        w_bytes, kv_bytes = tree_bytes(params), tree_bytes(cache)
+        ms = dt / n_steps * 1e3
+        emit({"phase": "lm_serve", "check": "c", "arch": arch, "dtype": "bf16",
+              "layers": f"{layers} of {full_cfg.n_layers}",
+              "reduced": [f"depth {full_cfg.n_layers} -> {layers} layers"],
+              "params": sum(x.numel() for _, x in tree.leaves(params)), "init_s": init_s,
+              "batch": SERVE_MOE_BATCH, "ctx": SERVE_MOE_CTX, "steps": n_steps,
+              "ms_per_step": ms, "tokens_per_s": SERVE_MOE_BATCH * n_steps / dt,
+              "weight_bytes": w_bytes, "kv_cache_bytes": kv_bytes, "cache_shapes": shapes,
+              "hbm_share": (w_bytes + kv_bytes) / (ms / 1e3) / HBM_BYTES_PER_S,
+              "device_peak_bytes": torch.cuda.max_memory_allocated(),
+              "resident_before_bytes": resident})
+        del params, cache, model, gen, logits
+
+    # (d) the card against the CPU on the three reduced configs, float32
+    worst = {}
+    resident = fresh_peak()
+    for arch in ("gemma3-1b", "llama4-scout-17b-a16e", "deepseek-v3-671b"):
+        cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="fp32")
+        cpu_m, card_m = DecoderLM(cfg, device="cpu"), DecoderLM(cfg, device=dev)
+        cpu_p = cpu_m.init(torch.Generator().manual_seed(0))
+        card_p = tree.rebuild(cpu_p, lambda _, x: x.to(dev))
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab, (2, SERVE_CPU_STEPS)).astype(np.int32))
+        caches = (cpu_m.init_cache(2, 16, dtype=torch.float32),
+                  card_m.init_cache(2, 16, dtype=torch.float32))
+        errs = []
+        with torch.no_grad():
+            for p in range(SERVE_CPU_STEPS):
+                a, ca = cpu_m.decode_step(cpu_p, caches[0], toks[:, p:p + 1], p)
+                b, cb = card_m.decode_step(card_p, caches[1], toks[:, p:p + 1].to(dev), p)
+                caches = (ca, cb)
+                errs.append(float((b.cpu() - a).abs().max()) / float(a.abs().max()))
+        worst[arch] = max(errs)
+        check(worst[arch] <= 1e-4, f"lm_serve (d) {arch}: card != CPU, {worst[arch]} max|logits|")
+    emit({"phase": "lm_serve", "check": "d", "dtype": "fp32", "steps": SERVE_CPU_STEPS,
+          "max_abs_err_over_max_logits": worst, "bound": 1e-4,
+          "device_peak_bytes": torch.cuda.max_memory_allocated(),
+              "resident_before_bytes": resident})
+
+    # (e) the driver on the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gemma3-1b",
+                        "--reduced"], env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t
+    check(r.returncode == 0 and "tokens/s=" in r.stdout,
+          f"lm_serve (e): the driver exited {r.returncode}: {r.stdout[-1000:]} {r.stderr[-2000:]}")
+    said = dict(kv.split("=", 1) for kv in r.stdout.split() if "=" in kv)
+    launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()), f"lm_serve: a codec kernel was launched: {launches}")
+    emit({"phase": "lm_serve", "check": "e", "seconds": cli_s,
+          "ms_per_step": float(said["ms/step"]),
+          "tokens_per_s": float(said["tokens/s"].replace(",", "")),
+          "kv_cache_bytes": int(said["kv_cache_bytes"]),
+          "device_peak_bytes": int(said["device_peak_bytes"]),
+          "stdout": r.stdout.strip()[-300:], "launches": launches})
+
+
 def legacy_inputs(blob: bytes, dev):
     """The boundary pass's inputs for a legacy hf/hz blob: (args, kw, total
     bits); the kernel and its plain version take the same ones."""
@@ -2840,6 +3115,7 @@ def main() -> int:
         ckpt_launches = checkpoint_path(x_np, Path(tmp))
         dist_launches = gwlz_dist_path(x_np, Path(tmp))
         lm_launches = lm_train_path(Path(tmp))
+        lm_serve_path()
         cli_path(Path(tmp))
     path_launches = {"main": launches, "gwlz": gw["gwlz"][2], "szjx": sz_launches,
                      "interp": interp_launches, "interp_tiled": interp_tiled_launches,

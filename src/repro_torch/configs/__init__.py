@@ -1,13 +1,18 @@
 """Architecture registry, port of ``repro/configs/__init__.py``:
 ``--arch <id>`` resolves here.  It lists the architectures the port can
-build: the dense GQA decoders, which share one code path."""
+build, in the reference's order: the attention decoders (dense GQA,
+sliding-window, chunked with MoE, MLA with MoE), which share one code
+path."""
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("granite-3-8b", "yi-9b", "llama3-405b")
+ARCH_IDS = ("granite-3-8b", "yi-9b", "gemma3-1b", "llama3-405b", "deepseek-v3-671b",
+            "llama4-scout-17b-a16e")
 
-_MODULES = {"granite-3-8b": "granite_3_8b", "yi-9b": "yi_9b", "llama3-405b": "llama3_405b"}
+_MODULES = {"granite-3-8b": "granite_3_8b", "yi-9b": "yi_9b", "gemma3-1b": "gemma3_1b",
+            "llama3-405b": "llama3_405b", "deepseek-v3-671b": "deepseek_v3_671b",
+            "llama4-scout-17b-a16e": "llama4_scout_17b_a16e"}
 
 
 def arch_module(arch_id: str):

@@ -1,7 +1,9 @@
-"""The LM training step, port of ``repro/launch/steps.py`` (``:21-98``)
-for one microbatch: loss, gradients, warm-up cosine learning rate and an
-AdamW update with weight decay 0.1 and the chosen moment dtype.
-Microbatching waits for its caller (the dry run)."""
+"""The LM steps, port of ``repro/launch/steps.py``: the training step
+(``:21-98``) for one microbatch (loss, gradients, warm-up cosine learning
+rate and an AdamW update with weight decay 0.1 and the chosen moment
+dtype), and the decoder's decode step (``:124-142``).  Microbatching and
+the prefill step wait for their caller (the dry run); the
+encoder-decoder's decode step waits for whisper."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -44,3 +46,15 @@ def make_train_step(model, cfg, opts: TrainOptions):
         return params, opt_state, {"loss": loss.detach(), "lr": lr}
 
     return train_step, adam_cfg
+
+
+def make_decode_step(model):
+    """One new token against a filled KV cache: ``decode_step(params,
+    cache, batch) -> (logits [B, V], cache)`` with ``batch`` holding
+    ``token`` [B, 1] and ``pos``, the absolute position.  The cache is
+    written in place (``DecoderLM.decode_step``)."""
+
+    def decode_step(params, cache, batch):
+        return model.decode_step(params, cache, batch["token"], batch["pos"])
+
+    return decode_step

@@ -1,12 +1,20 @@
-"""Grouped-query attention, port of ``repro/models/attention.py``
-(``:44-272``): full causal attention without a cache, the path of the dense
-decoders (granite, yi, llama3) in training.
+"""Attention, port of ``repro/models/attention.py`` (``:35-352``):
+blockwise GQA over the four mask modes (full causal, sliding window,
+chunked local, bidirectional) with logit softcapping and the banded
+O(S·w) prefill of sliding and chunked layers; qk-norm; the decode path
+against a ring-buffer KV cache; and MLA (deepseek-v3) with its latent
+cache and absorbed decode.
 
 Attention has no Pallas kernel in the reference, so this is plain torch
-and mirrors the reference's blockwise einsum, mask and float32 softmax;
-fused attention is later work.  Sliding and chunked masks, MLA, qk-norm,
-M-RoPE, softcapping and decode caches are not ported yet:
-``models/decoder.py`` refuses a configuration that uses them.
+and mirrors the reference's einsums, masks and float32 softmax; a fused
+kernel is later work.  M-RoPE and cross-attention (qwen2-vl, whisper) are
+not ported yet: ``models/decoder.py`` refuses a configuration that uses
+them.
+
+Decode caches are updated in place: a cache passed to ``gqa_attention``
+or ``mla_attention`` is written and returned, and the caller carries the
+returned one on (the reference returns a fresh array; the values are the
+same).
 """
 from __future__ import annotations
 
@@ -16,9 +24,19 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.common import apply_rope, normal_init
+from repro_torch.models.common import apply_rope, normal_init, rms_norm
 
 MASK_CAUSAL, MASK_SLIDING, MASK_CHUNKED, MASK_BIDIR = 0, 1, 2, 3
+_UNWRITTEN = 1 << 30  # the position of a ring slot not written yet: in the future
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora: int = 1536
+    kv_lora: int = 512
+    rope_dim: int = 64
+    nope_dim: int = 128
+    v_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -28,69 +46,247 @@ class AttnConfig:
     head_dim: int
     d_model: int
     rope_theta: float = 1e4
-    # the reference's other mechanisms; set, they are refused (not ported)
     qk_norm: bool = False
-    mla: Optional[object] = None
+    mla: Optional[MLAConfig] = None
+    # the reference's M-RoPE (qwen2-vl); set, it is refused (not ported)
     mrope_sections: Optional[tuple[int, ...]] = None
     mrope_theta: float = 1e6
-    softcap: float = 0.0
+    softcap: float = 0.0  # gemma-style logit softcapping (0 = off)
 
 
 def init_gqa_params(cfg: AttnConfig, *, generator: torch.Generator,
                     dtype=torch.float32) -> dict:
-    """Normal weights scaled by fan-in (``common.normal_init``)."""
+    """Normal weights scaled by fan-in (``common.normal_init``); zero
+    qk-norm scales where ``cfg.qk_norm``."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     normal = functools.partial(normal_init, generator=generator, dtype=dtype)
     s = d ** -0.5
-    return {"wq": normal((d, H, hd), s), "wk": normal((d, K, hd), s),
-            "wv": normal((d, K, hd), s), "wo": normal((H, hd, d), (H * hd) ** -0.5)}
+    p = {"wq": normal((d, H, hd), s), "wk": normal((d, K, hd), s),
+         "wv": normal((d, K, hd), s), "wo": normal((H, hd, d), (H * hd) ** -0.5)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=generator.device)
+        p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=generator.device)
+    return p
+
+
+def init_mla_params(cfg: AttnConfig, *, generator: torch.Generator,
+                    dtype=torch.float32) -> dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    normal = functools.partial(normal_init, generator=generator, dtype=dtype)
+    s = d ** -0.5
+    zeros = lambda n: torch.zeros((n,), dtype=dtype, device=generator.device)
+    return {
+        "w_dq": normal((d, m.q_lora), s),
+        "w_uq": normal((m.q_lora, H, m.nope_dim + m.rope_dim), m.q_lora ** -0.5),
+        "w_dkv": normal((d, m.kv_lora), s),
+        "w_kr": normal((d, m.rope_dim), s),
+        "w_uk": normal((m.kv_lora, H, m.nope_dim), m.kv_lora ** -0.5),
+        "w_uv": normal((m.kv_lora, H, m.v_dim), m.kv_lora ** -0.5),
+        "wo": normal((H, m.v_dim, d), (H * m.v_dim) ** -0.5),
+        "q_ln": zeros(m.q_lora),
+        "kv_ln": zeros(m.kv_lora),
+    }
+
+
+# ---------------------------------------------------------------------------
+# masked blockwise attention core
+# ---------------------------------------------------------------------------
 
 
 def _mask_logits(scores: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor,
-                 mask_mode: int) -> torch.Tensor:
+                 mask_mode: int, window: int) -> torch.Tensor:
     """scores: [..., Lq, Lk]; q_pos: [Lq]; k_pos: [Lk]."""
-    if mask_mode != MASK_CAUSAL:
-        raise NotImplementedError(f"attention mask mode {mask_mode} is not ported yet")
-    allow = k_pos[None, :] <= q_pos[:, None]
+    dq = q_pos[:, None]
+    dk = k_pos[None, :]
+    causal = dk <= dq
+    if mask_mode == MASK_BIDIR:
+        return scores
+    if mask_mode == MASK_CAUSAL:
+        allow = causal
+    elif mask_mode == MASK_SLIDING:
+        allow = causal & (dk > dq - window)
+    elif mask_mode == MASK_CHUNKED:
+        allow = causal & (dk // window == dq // window)  # floor division, as jnp's
+    else:
+        raise ValueError(mask_mode)
     return torch.where(allow, scores, torch.full((), -1e30, dtype=scores.dtype,
                                                  device=scores.device))
 
 
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap) if cap else x
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_positions: torch.Tensor,
-           k_positions: torch.Tensor, *, mask_mode: int = MASK_CAUSAL,
-           q_block: int = 512) -> torch.Tensor:
+           k_positions: torch.Tensor, *, mask_mode: int = MASK_CAUSAL, window: int = 0,
+           q_block: int = 512, softcap: float = 0.0, banded: bool = False) -> torch.Tensor:
     """GQA attention, blockwise over queries (the mask built per block from
     positions, float32 softmax).  q [B, Lq, H, D], k [B, Lk, K, D],
-    v [B, Lk, K, Dv] -> [B, Lq, H, Dv] in q's dtype."""
+    v [B, Lk, K, Dv] -> [B, Lq, H, Dv] in q's dtype.
+
+    ``banded=True`` (sliding or chunked layers over contiguous positions:
+    prefill and training) lets each query block attend only to the
+    ``window + block`` keys it can see, O(S·w) instead of O(S²); it applies
+    where the reference's does: more than one block, ``window > 0`` and a
+    multiple of the block."""
     B, Lq, H, D = q.shape
-    K, Dv = k.shape[2], v.shape[3]
+    Lk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // K  # query heads per kv head
     scale = D ** -0.5
     qg = q.reshape(B, Lq, K, G, D)
     bq = min(q_block, Lq)
     if Lq % bq != 0:
         bq = Lq  # irregular sizes: one block
+    nb = Lq // bq
+    use_band = (banded and nb > 1 and window > 0
+                and mask_mode in (MASK_SLIDING, MASK_CHUNKED) and window % bq == 0)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     outs = []
     for i in range(0, Lq, bq):
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg[:, i:i + bq].to(torch.float32), kf) * scale
-        s = _mask_logits(s, q_positions[i:i + bq], k_positions, mask_mode)
+        qpos_b = q_positions[i:i + bq]
+        kb, vb, kpos_b = kf, vf, k_positions
+        if use_band:
+            # visible keys: [q0 - window + bq, q0 + bq) for sliding, the
+            # containing chunk for chunked: a static-size kw slice
+            kw = min(window + bq, Lk)
+            q0 = qpos_b[0]
+            if mask_mode == MASK_SLIDING:
+                start = torch.clamp(q0 + bq - kw, 0, Lk - kw)
+            else:
+                start = torch.clamp((q0 // window) * window, 0, Lk - kw)
+            kpos_b = start + torch.arange(kw, device=k.device)
+            kb, vb = kf.index_select(1, kpos_b), vf.index_select(1, kpos_b)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg[:, i:i + bq].to(torch.float32), kb) * scale
+        s = _softcap(s, softcap)
+        s = _mask_logits(s, qpos_b, kpos_b, mask_mode, window)
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, vf))
+        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, vb))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.reshape(B, Lq, H, Dv).to(q.dtype)
 
 
+def _update_slice(buf: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> None:
+    """``jax.lax.dynamic_update_slice`` of ``new`` into ``buf`` along axis
+    1 at the device scalar ``start`` (clamped so that ``new`` fits), in
+    place: no host sync."""
+    S, C = new.shape[1], buf.shape[1]
+    idx = torch.clamp(start, 0, C - S).to(torch.int64) + torch.arange(S, device=buf.device)
+    buf.index_copy_(1, idx, new)
+
+
+# ---------------------------------------------------------------------------
+# GQA layer (full / sliding / chunked / bidirectional + ring-buffer cache)
+# ---------------------------------------------------------------------------
+
+
 def gqa_attention(params: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor, *,
-                  mask_mode: int = MASK_CAUSAL, rope_on: bool = True,
-                  rope_theta: float | None = None) -> torch.Tensor:
-    """Self-attention over x [B, S, d] at positions [S] -> [B, S, d]."""
+                  mask_mode: int = MASK_CAUSAL, window: int = 0, rope_on: bool = True,
+                  rope_theta: float | None = None,
+                  cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+    """Self-attention over x [B, S, d] at positions [S] -> (y [B, S, d],
+    cache).
+
+    Cache layout: {"k": [B, C, K, D], "v": [B, C, K, D], "pos": int32
+    scalar}, where C is the full context for global layers or the ring's
+    size (= window) for sliding and chunked ones; ``pos`` is the absolute
+    position of the first new token.  One new token goes to slot
+    ``pos % C``, several to slot 0 (the reference's rule)."""
     theta = cfg.rope_theta if rope_theta is None else rope_theta
     q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
     k = torch.einsum("bsd,dke->bske", x, params["wk"])
     v = torch.einsum("bsd,dke->bske", x, params["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
     if rope_on:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
-    out = attend(q, k, v, positions, positions, mask_mode=mask_mode)
-    return torch.einsum("bshe,hed->bsd", out, params["wo"])
+
+    if cache is None:
+        out = attend(q, k, v, positions, positions, mask_mode=mask_mode, window=window,
+                     softcap=cfg.softcap, banded=True)
+    else:
+        # decode: write the new kv into the (ring) cache, attend over it
+        C = cache["k"].shape[1]
+        pos = cache["pos"]
+        start = pos % C if k.shape[1] == 1 else torch.zeros_like(pos)
+        _update_slice(cache["k"], k, start)
+        _update_slice(cache["v"], v, start)
+        # each slot's absolute position (% floors, as jnp's); unwritten
+        # slots get a FUTURE position, so the causal test drops them (a past
+        # sentinel would let zero vectors in as an attention sink)
+        k_abs = pos - torch.remainder(pos - torch.arange(C, device=pos.device), C)
+        k_positions = torch.where(k_abs < 0, _UNWRITTEN, k_abs)
+        out = attend(q, cache["k"], cache["v"], positions, k_positions, mask_mode=mask_mode,
+                     window=window, softcap=cfg.softcap)
+        pos.add_(q.shape[1])
+    return torch.einsum("bshe,hed->bsd", out, params["wo"]), cache
+
+
+def init_gqa_cache(batch: int, ctx: int, cfg: AttnConfig, *, window: int = 0,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    C = window if window else ctx
+    shape = (batch, C, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3): latent KV cache, absorbed decode
+# ---------------------------------------------------------------------------
+
+
+def mla_attention(params: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor, *,
+                  cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+    """Multi-head latent attention.  The cache holds only ``c_kv`` and the
+    shared rope key, kv_lora + rope_dim values a token.  Prefill expands
+    the latents; decode attends in the latent space (w_uk absorbed into
+    the query, w_uv applied after)."""
+    m = cfg.mla
+    H = cfg.n_heads
+    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, params["w_dq"]), params["q_ln"])
+    q = torch.einsum("bsr,rhe->bshe", cq, params["w_uq"])  # e = nope + rope
+    q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    c_kv = rms_norm(torch.einsum("bsd,dr->bsr", x, params["w_dkv"]), params["kv_ln"])
+    k_rope = torch.einsum("bsd,de->bse", x, params["w_kr"])  # shared across heads
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    scale = (m.nope_dim + m.rope_dim) ** -0.5
+
+    if cache is None:
+        # prefill / training: expand the latents
+        k_nope = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uk"])
+        v = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uv"])
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_rope.shape[:2], H,
+                                                                  m.rope_dim)], -1)
+        q_full = torch.cat([q_nope, q_rope], -1)
+        out = attend(q_full, k_full, v, positions, positions, mask_mode=MASK_CAUSAL)
+        return torch.einsum("bshe,hed->bsd", out, params["wo"]), None
+
+    # decode: the absorbed form
+    pos = cache["pos"]
+    C = cache["c_kv"].shape[1]
+    _update_slice(cache["c_kv"], c_kv, pos % C)
+    _update_slice(cache["k_rope"], k_rope, pos % C)
+    cc, cr = cache["c_kv"].to(torch.float32), cache["k_rope"].to(torch.float32)
+    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, params["w_uk"])  # [B, S, H, r]
+    s = torch.einsum("bshr,btr->bhst", q_lat.to(torch.float32), cc)
+    s = s + torch.einsum("bshe,bte->bhst", q_rope.to(torch.float32), cr)
+    valid = torch.arange(C, device=pos.device) <= pos
+    s = torch.where(valid, s * scale, torch.full((), -1e30, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", p, cc)  # [B, S, H, r]
+    out = torch.einsum("bshr,rhe->bshe", o_lat, params["w_uv"].to(torch.float32))
+    y = torch.einsum("bshe,hed->bsd", out.to(x.dtype), params["wo"])
+    pos.add_(x.shape[1])
+    return y, cache
+
+
+def init_mla_cache(batch: int, ctx: int, cfg: AttnConfig, dtype=torch.bfloat16,
+                   device=None) -> dict:
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, ctx, m.kv_lora), dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, ctx, m.rope_dim), dtype=dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}

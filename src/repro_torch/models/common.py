@@ -39,6 +39,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 def normal_init(shape, scale: float, *, generator: torch.Generator, dtype) -> torch.Tensor:
     """``scale`` times a standard normal draw, in float32 on ``generator``'s
     device, cast to ``dtype`` (the reference's init; its ``jax.random``
-    bits cannot be reproduced, so parity tests inject its draw)."""
+    bits cannot be reproduced, so parity tests inject its draw).  The
+    float32 draw, scaled in place, is the only transient."""
     w = torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)

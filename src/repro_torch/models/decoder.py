@@ -1,6 +1,9 @@
-"""The decoder LM for the dense GQA family (granite, yi, llama3), port of
-``repro/models/decoder.py`` (``:25-323``): ``LayerSpec``, ``ModelConfig``,
-stages, and ``DecoderLM``'s init, forward without a cache, and loss.
+"""The decoder LM, port of ``repro/models/decoder.py`` (``:25-334``):
+``LayerSpec``, ``ModelConfig``, stages, and ``DecoderLM``'s init, decode
+caches, forward (with or without a cache), loss and decode step, for the
+attention families: dense GQA (granite, yi, llama3), sliding-window with
+qk-norm and a scaled embedding (gemma3), chunked-local with NoPE globals
+and MoE (llama4-scout), and MLA with MoE (deepseek-v3).
 
 Parameters are the reference's tree: ``embed``, ``final_norm``,
 ``lm_head`` (untied models), and per stage ``stage{i}``, a list over the
@@ -8,15 +11,15 @@ stage's period of per-layer dicts whose leaves are stacked on a leading
 ``count`` axis.  So checkpoints and AdamW trees match the reference's.  A
 forward takes each stacked leaf's per-layer views with one
 ``torch.unbind`` (whose backward stacks the layers' gradients into one
-tensor) and runs the layers in order; with ``cfg.remat`` each period runs
-under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
-its scan body).
+tensor) and runs the layers in order; without a cache and with
+``cfg.remat`` each period runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of its scan body).  Caches stack the same
+way, one tree a stage slot with a leading ``count`` axis, and a decode
+writes them in place through the same per-layer views.
 
-Mechanisms the dense family does not use are not ported yet, and a model
-that asks for one is refused when it is built (``NotImplementedError``):
-MLA, MoE, RWKV6, Mamba2, shared blocks, sliding and chunked masks,
-M-RoPE, qk-norm, softcaps, ``emb_scale``, layer norm, GELU and the
-encoder-decoder.
+Mechanisms not ported yet are refused when a model is built
+(``NotImplementedError``): RWKV6, Mamba2, shared blocks, M-RoPE, the
+encoder-decoder, layer norm and GELU.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ class ModelConfig:
     d_ff: int
     vocab: int
     attn: Optional[A.AttnConfig] = None
-    moe: Optional[object] = None
+    moe: Optional[M.MoEConfig] = None
     rwkv: Optional[object] = None
     mamba: Optional[object] = None
     act: str = "silu"
@@ -113,40 +116,57 @@ def _unported(cfg: ModelConfig) -> list[str]:
     """The mechanisms ``cfg`` asks for that the port does not have yet."""
     a = cfg.attn
     bad = [name for name, on in (
-        ("an attention config", a is None),
-        ("MoE", cfg.moe is not None), ("RWKV6", cfg.rwkv is not None),
+        ("an attention config", a is None), ("RWKV6", cfg.rwkv is not None),
         ("Mamba2", cfg.mamba is not None), ("shared blocks", cfg.shared_block),
         ("an encoder", cfg.enc_layers > 0), (f"act {cfg.act!r}", cfg.act != "silu"),
-        (f"norm {cfg.norm!r}", cfg.norm != "rms"), ("logit softcap", bool(cfg.logit_softcap)),
-        ("emb_scale", cfg.emb_scale)) if on]
-    if a is not None:
-        bad += [name for name, on in (
-            ("MLA", a.mla is not None), ("qk-norm", a.qk_norm),
-            ("M-RoPE", a.mrope_sections is not None), ("attention softcap", bool(a.softcap)))
-            if on]
+        (f"norm {cfg.norm!r}", cfg.norm != "rms")) if on]
+    if a is not None and a.mrope_sections is not None:
+        bad.append("M-RoPE")
     for spec in cfg.pattern:
         bad += [name for name, on in (
-            (f"layer kind {spec.kind!r}", spec.kind != "attn"),
-            (f"mask mode {spec.mask_mode}", spec.mask_mode != A.MASK_CAUSAL),
-            ("windowed attention", bool(spec.window)), ("MoE layers", spec.moe),
+            (f"layer kind {spec.kind!r}", spec.kind not in ("attn", "mla")),
             ("layers without a feed-forward", not spec.has_ffn)) if on]
     return sorted(set(bad))
 
 
-def _init_layer(cfg: ModelConfig, generator: torch.Generator, dtype) -> dict:
+def _init_layer(cfg: ModelConfig, spec: LayerSpec, generator: torch.Generator, dtype) -> dict:
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=generator.device)
-    return {"ln1": zeros(), "attn": A.init_gqa_params(cfg.attn, generator=generator, dtype=dtype),
-            "ln2": zeros(),
-            "ffn": M.init_mlp_params(cfg.d_model, cfg.d_ff, generator=generator, dtype=dtype)}
+    init_attn = A.init_mla_params if spec.kind == "mla" else A.init_gqa_params
+    p = {"ln1": zeros(), "attn": init_attn(cfg.attn, generator=generator, dtype=dtype),
+         "ln2": zeros()}
+    if spec.moe:
+        p["ffn"] = M.init_moe_params(cfg.d_model, cfg.moe, generator=generator, dtype=dtype)
+    else:
+        p["ffn"] = M.init_mlp_params(cfg.d_model, cfg.d_ff, generator=generator, dtype=dtype)
+    return p
 
 
 def _apply_layer(params: dict, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, cache: dict | None):
+    """Returns (x, aux loss); the aux loss is None for a dense
+    feed-forward.  A cache is written in place."""
     h = rms_norm(x, params["ln1"])
-    x = x + A.gqa_attention(params["attn"], cfg.attn, h, positions, mask_mode=spec.mask_mode,
-                            rope_on=spec.rope_on, rope_theta=spec.rope_theta)
+    if spec.kind == "mla":
+        y, _ = A.mla_attention(params["attn"], cfg.attn, h, positions, cache=cache)
+    else:
+        y, _ = A.gqa_attention(params["attn"], cfg.attn, h, positions,
+                               mask_mode=spec.mask_mode, window=spec.window,
+                               rope_on=spec.rope_on, rope_theta=spec.rope_theta, cache=cache)
+    x = x + y
     h = rms_norm(x, params["ln2"])
-    return x + M.apply_mlp(params["ffn"], h)
+    if spec.moe:
+        y, aux = M.apply_moe(params["ffn"], h, cfg.moe)
+    else:
+        y, aux = M.apply_mlp(params["ffn"], h), None
+    return x + y, aux
+
+
+def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, ctx: int, dtype,
+                      device) -> dict:
+    if spec.kind == "mla":
+        return A.init_mla_cache(batch, ctx, cfg.attn, dtype=dtype, device=device)
+    return A.init_gqa_cache(batch, ctx, cfg.attn, window=spec.window, dtype=dtype,
+                            device=device)
 
 
 def _unstack(stacked, count: int) -> list:
@@ -173,7 +193,10 @@ class DecoderLM:
 
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters in ``cfg.dtype``, drawn from ``generator``
-        (which must live on the model's device)."""
+        (which must live on the model's device).  Each layer is written
+        into its stage's stacked leaves as it is drawn (a stage of one
+        repeat keeps the layer's own tensors), so the transient is one
+        layer and one float32 draw, not a second copy of the weights."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
         cfg, dtype = self.cfg, self.cfg.compute_dtype
@@ -186,47 +209,99 @@ class DecoderLM:
             params["lm_head"] = normal_init((cfg.d_model, cfg.vocab), cfg.d_model ** -0.5,
                                             generator=generator, dtype=dtype)
         for si, stage in enumerate(self.stages):
-            per = [[_init_layer(cfg, generator, dtype) for _ in stage.specs]
-                   for _ in range(stage.count)]
-            params[f"stage{si}"] = [
-                tree.rebuild(per[0][pi], lambda path, _, pi=pi: torch.stack(
-                    [tree.get(per[c][pi], path) for c in range(stage.count)]))
-                for pi in range(len(stage.specs))]
+            stacked = [None] * len(stage.specs)
+            for c in range(stage.count):
+                for pi, spec in enumerate(stage.specs):
+                    layer = _init_layer(cfg, spec, generator, dtype)
+                    if stage.count == 1:
+                        stacked[pi] = tree.rebuild(layer, lambda _, t: t.unsqueeze(0))
+                        continue
+                    if c == 0:
+                        stacked[pi] = tree.rebuild(
+                            layer, lambda _, t: t.new_empty((stage.count, *t.shape)))
+                    for path, t in tree.leaves(layer):
+                        tree.get(stacked[pi], path)[c].copy_(t)
+            params[f"stage{si}"] = stacked
         return params
 
-    def _period(self, stage: Stage, layer_params: list, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-        for lp, spec in zip(layer_params, stage.specs):
-            x = _apply_layer(lp, self.cfg, spec, x, positions)
-        return x
+    def init_cache(self, batch: int, ctx: int, dtype=torch.bfloat16) -> list:
+        """Zeroed decode caches on the model's device: per stage, a list
+        over its period of per-layer trees stacked on a leading ``count``
+        axis (``pos`` an int32 a layer), as the reference's."""
+        caches = []
+        for stage in self.stages:
+            caches.append([tree.rebuild(
+                _init_layer_cache(self.cfg, spec, batch, ctx, dtype, self.device),
+                lambda _, t, n=stage.count: t.expand(n, *t.shape).clone())
+                for spec in stage.specs])
+        return caches
 
-    def apply(self, params: dict, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] (integer), positions [S] -> logits [B, S, V] in the
-        parameters' dtype."""
+    def _period(self, stage: Stage, layer_params: list, x: torch.Tensor,
+                positions: torch.Tensor, layer_caches: list | None):
+        """One period of a stage -> (x, aux loss).  The aux loss is the
+        period's LAST layer's (None if that layer is dense): the
+        reference's scan body adds only the ``a`` its layer loop ends
+        with, so an earlier MoE layer of a period adds nothing to the
+        loss (ROADMAP Queue 3); the port adds what the reference adds."""
+        a = None
+        for pi, (lp, spec) in enumerate(zip(layer_params, stage.specs)):
+            x, a = _apply_layer(lp, self.cfg, spec, x, positions,
+                                None if layer_caches is None else layer_caches[pi])
+        return x, a
+
+    def apply(self, params: dict, tokens: torch.Tensor, positions: torch.Tensor,
+              cache: list | None = None):
+        """tokens [B, S] (integer), positions [S] -> (logits [B, S, V] in
+        the parameters' dtype, cache, aux loss).  With a cache (from
+        ``init_cache``) the new keys and values are written into it in
+        place and it is returned; without one the cache returned is None."""
         cfg = self.cfg
         x = F.embedding(tokens.to(torch.int64), params["embed"])
+        if cfg.emb_scale:  # sqrt(d) rounded to the activations' dtype first, as the reference
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, stage in enumerate(self.stages):
             slots = [_unstack(lp, stage.count) for lp in params[f"stage{si}"]]
+            cslots = (None if cache is None
+                      else [_unstack(lc, stage.count) for lc in cache[si]])
             for c in range(stage.count):
                 layer_params = [slot[c] for slot in slots]
-                if cfg.remat:
-                    x = checkpoint(self._period, stage, layer_params, x, positions,
-                                   use_reentrant=False)
+                if cache is not None:
+                    x, a = self._period(stage, layer_params, x, positions,
+                                        [slot[c] for slot in cslots])
+                elif cfg.remat:
+                    x, a = checkpoint(self._period, stage, layer_params, x, positions, None,
+                                      use_reentrant=False)
                 else:
-                    x = self._period(stage, layer_params, x, positions)
+                    x, a = self._period(stage, layer_params, x, positions, None)
+                if a is not None:
+                    aux = aux + a
         x = rms_norm(x, params["final_norm"])
         if cfg.tie_embeddings:
-            return torch.einsum("bsd,vd->bsv", x, params["embed"])
-        return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+            logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+        else:
+            logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+        if cfg.logit_softcap:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        return logits, cache, aux
 
     def loss(self, params: dict, tokens: torch.Tensor, targets: torch.Tensor,
              positions: torch.Tensor):
-        """Mean next-token NLL plus the 1e-4 logz^2 z-loss, in float32.
-        Returns (loss, {"nll", "aux"}); aux (MoE balance) is 0 here."""
-        logits = self.apply(params, tokens, positions).to(torch.float32)
+        """Mean next-token NLL plus the 1e-4 logz^2 z-loss and the MoE
+        balance loss, in float32.  Returns (loss, {"nll", "aux"})."""
+        logits, _, aux = self.apply(params, tokens, positions)
+        logits = logits.to(torch.float32)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, targets.to(torch.int64)[..., None])[..., 0]
         nll = (logz - gold).mean()
         zloss = 1e-4 * (logz ** 2).mean()
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
         return nll + zloss + aux, {"nll": nll, "aux": aux}
+
+    def decode_step(self, params: dict, cache: list, token: torch.Tensor, pos):
+        """token [B, 1]; pos the absolute position (an int, or an integer
+        tensor on the model's device: a 0-d one costs no host sync) ->
+        (logits [B, V], cache)."""
+        pos = torch.as_tensor(pos, device=self.device)
+        logits, cache, _ = self.apply(params, token, pos[None] if pos.ndim == 0 else pos,
+                                      cache=cache)
+        return logits[:, -1], cache

@@ -1,14 +1,30 @@
-"""The dense SwiGLU feed-forward block, port of ``repro/models/mlp.py``
-(``:31-54``).  MoE and the GELU MLP are not ported yet
-(``models/decoder.py`` refuses them)."""
+"""Feed-forward blocks, port of ``repro/models/mlp.py`` (``:19-131``): the
+dense SwiGLU MLP and the capacity-based MoE (top-k routing with a
+per-expert capacity, the slot in an expert by a cumsum over the dispatch
+order, dense [E, C, d] expert products, a combine weighted by the router).
+The GELU MLP is not ported yet (``models/decoder.py`` refuses it)."""
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import normal_init
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                       # per-expert hidden dim
+    n_shared: int = 0               # shared (always-on) experts
+    shared_d_ff: int = 0
+    router: str = "softmax"         # softmax | sigmoid (deepseek-v3)
+    capacity_factor: float = 1.25
+    first_dense: int = 0            # leading dense layers (deepseek: 3)
+    aux_loss_coef: float = 0.001
 
 
 def init_mlp_params(d_model: int, d_ff: int, *, generator: torch.Generator,
@@ -25,3 +41,79 @@ def apply_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(torch.einsum("bsd,df->bsf", x, params["w_gate"]))
     h = h * torch.einsum("bsd,df->bsf", x, params["w_up"])
     return torch.einsum("bsf,fd->bsd", h, params["w_down"])
+
+
+def init_moe_params(d_model: int, cfg: MoEConfig, *, generator: torch.Generator,
+                    dtype=torch.float32) -> dict:
+    """A float32 router, SwiGLU experts stacked on a leading [E] axis, and
+    the shared expert where ``cfg.n_shared``.  Each leaf is cast as it is
+    drawn, so the float32 draw of one expert tensor is the transient."""
+    normal = functools.partial(normal_init, generator=generator, dtype=dtype)
+    E, Fd = cfg.n_experts, cfg.d_ff
+    s_in, s_out = d_model ** -0.5, Fd ** -0.5
+    p = {"router": normal_init((d_model, E), s_in, generator=generator, dtype=torch.float32),
+         "we_up": normal((E, d_model, Fd), s_in),
+         "we_down": normal((E, Fd, d_model), s_out),
+         "we_gate": normal((E, d_model, Fd), s_in)}
+    if cfg.n_shared:
+        p["shared"] = init_mlp_params(d_model, cfg.shared_d_ff or cfg.d_ff,
+                                      generator=generator, dtype=dtype)
+    return p
+
+
+def _route(logits: torch.Tensor, cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """logits [T, E] -> (weights [T, k], expert ids [T, k])."""
+    if cfg.router == "sigmoid":  # deepseek-v3: sigmoid scores, normalised top-k
+        w, idx = torch.topk(torch.sigmoid(logits), cfg.top_k, dim=-1)
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    else:
+        w, idx = torch.topk(torch.softmax(logits, dim=-1), cfg.top_k, dim=-1)
+    return w, idx
+
+
+def apply_moe(params: dict, x: torch.Tensor, cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> (out [B, S, d], the Switch load-balance aux loss, a
+    float32 scalar).  A (token, k) pair past its expert's capacity is
+    dropped (it adds nothing).
+
+    Every kept pair owns one slot of the [E, cap] buffer, so the dispatch
+    is an indexed assignment onto zeros (``index_put_``), deterministic on
+    the card; the dropped pairs all go to one trash row, which is cut off
+    unread."""
+    B, S, d = x.shape
+    T = B * S
+    xt = x.reshape(T, d)
+    E, k = cfg.n_experts, cfg.top_k
+    cap = int(max(1, round(T * k * cfg.capacity_factor / E)))  # Python's round, as the reference
+
+    logits = xt.to(torch.float32) @ params["router"]
+    w, idx = _route(logits, cfg)  # [T, k]
+
+    flat_e = idx.reshape(-1)  # [T*k], the (t, k) dispatch order
+    onehot = F.one_hot(flat_e, E).to(torch.int32)  # [T*k, E]
+    # load-balance aux loss (Switch): E * sum_e f_e * p_e
+    f = onehot.sum(0).to(torch.float32) / (T * k)
+    probs = torch.softmax(logits, dim=-1)
+    aux = E * torch.sum(f * probs.mean(0)) * cfg.aux_loss_coef
+
+    # the slot in an expert: an exclusive cumsum over the dispatch order
+    cum = torch.cumsum(onehot, dim=0) - onehot
+    pos_in_e = torch.gather(cum, 1, flat_e[:, None])[:, 0]
+    keep = pos_in_e < cap
+    wflat = w.reshape(-1) * keep  # dropped pairs contribute nothing
+    slot = torch.where(keep, flat_e * cap + pos_in_e, E * cap)  # overflow -> trash row
+    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((slot,), xt.repeat_interleave(k, dim=0))
+    xe = buf[:-1].reshape(E, cap, d)
+
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, params["we_gate"]))
+    h = h * torch.einsum("ecd,edf->ecf", xe, params["we_up"])
+    ye = torch.einsum("ecf,efd->ecd", h, params["we_down"])  # [E, cap, d]
+
+    # gather back: each (t, k) reads its slot
+    ytk = ye.reshape(E * cap, d)[torch.clamp(slot, max=E * cap - 1)]
+    ytk = torch.where(keep[:, None], ytk, torch.zeros((), dtype=ytk.dtype, device=ytk.device))
+    out = (ytk * wflat[:, None]).reshape(T, k, d).sum(1).reshape(B, S, d)
+    if "shared" in params:
+        out = out + apply_mlp(params["shared"], x)
+    return out.to(x.dtype), aux

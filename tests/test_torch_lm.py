@@ -1,13 +1,14 @@
-"""Port parity: the dense-decoder LM (``repro_torch.models``,
+"""Port parity: the decoder LM (``repro_torch.models``,
 ``repro_torch.configs``), AdamW's compressed moments, ``warmup_cosine``
 and the token pipeline against ``repro`` on the CPU.
 
 Tolerances (measured maxima in brackets):
 
-* float32 models (granite, yi, llama3 reduced, ``dtype="fp32"``), from
+* float32 models (every ported arch reduced, ``dtype="fp32"``), from
   the reference's init: logits within 2e-5 absolute [4.1e-6 at |logits| up
-  to 4.5], loss within rtol 1e-6 [2.2e-7], each gradient leaf within
-  2e-5 of its largest value [2.2e-6].  XLA:CPU fuses and reorders float
+  to 4.5], loss (with the MoE aux loss) within rtol 1e-6 [2.2e-7], the
+  aux loss within rtol 1e-6, each gradient leaf within 2e-5 of its
+  largest value [2.2e-6].  XLA:CPU fuses and reorders float
   operations, so float paths are held to tolerances, not bits.
 * bfloat16 (the configs' dtype), granite: logits within 8 bfloat16 ulps
   of the largest, 2^-5 max|logits| [1.5 ulps], loss within rtol 2e-3
@@ -47,12 +48,19 @@ from repro_torch.core.convert import lm_params_from_arrays
 from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
 from repro_torch.models import attention as PAttn
 from repro_torch.models import decoder as PD
+from repro_torch.models import mlp as PMlp
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim import adamw as PA
 from repro_torch.optim.schedule import warmup_cosine
 
 CPU = "cpu"
-DENSE = ("granite-3-8b", "yi-9b", "llama3-405b")
+DENSE = ("granite-3-8b", "yi-9b", "gemma3-1b", "llama3-405b", "deepseek-v3-671b",
+         "llama4-scout-17b-a16e")  # the ported arch ids
+
+
+def _as(cls, obj):
+    """A reference config dataclass field for field as the port's ``cls``."""
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)})
 
 
 def _port_config(rcfg):
@@ -61,8 +69,10 @@ def _port_config(rcfg):
     fields = {f.name: getattr(rcfg, f.name) for f in dataclasses.fields(rcfg)}
     a = rcfg.attn
     if a is not None:
-        fields["attn"] = PAttn.AttnConfig(
-            **{f.name: getattr(a, f.name) for f in dataclasses.fields(a)})
+        fields["attn"] = dataclasses.replace(
+            _as(PAttn.AttnConfig, a), mla=None if a.mla is None else _as(PAttn.MLAConfig, a.mla))
+    if rcfg.moe is not None:
+        fields["moe"] = _as(PMlp.MoEConfig, rcfg.moe)
     fields["pattern"] = tuple(PD.LayerSpec(**dataclasses.asdict(s)) for s in rcfg.pattern)
     return PD.ModelConfig(**fields)
 
@@ -80,7 +90,9 @@ def test_build_stages_agrees_on_every_reference_pattern(arch):
 
 @pytest.mark.parametrize("arch", RC.ARCH_IDS)
 def test_registry_builds_the_dense_family_and_refuses_the_rest(arch):
+    """Six archs build (the attention families), four are refused."""
     pcfg = _port_config(RC.get_config(arch, reduced=True))
+    assert PC.ARCH_IDS == tuple(a for a in RC.ARCH_IDS if a in DENSE)
     if arch in DENSE:
         assert arch in PC.ARCH_IDS and PC.get_config(arch, reduced=True) == pcfg
         assert PC.get_config(arch) == _port_config(RC.get_config(arch))
@@ -117,16 +129,17 @@ def test_logits_loss_and_gradients_match_the_reference(arch, dtype):
     toks, tgts = (rng.integers(0, rcfg.vocab, (B, S)).astype(np.int32) for _ in range(2))
     pos = np.arange(S)
     rl = np.asarray(rm.apply(rp, jnp.asarray(toks), jnp.asarray(pos))[0], np.float32)
-    (rloss, _), rg = jax.value_and_grad(
+    (rloss, raux), rg = jax.value_and_grad(
         lambda p: rm.loss(p, jnp.asarray(toks), jnp.asarray(tgts), jnp.asarray(pos)),
         has_aux=True)(rp)
     for _, p in tree.leaves(pp):
         p.requires_grad_(True)
-    pl = pm.apply(pp, torch.from_numpy(toks), torch.from_numpy(pos))
+    pl = pm.apply(pp, torch.from_numpy(toks), torch.from_numpy(pos))[0]
     assert pl.dtype == pcfg.compute_dtype and tuple(pl.shape) == (B, S, rcfg.vocab)
     ploss, aux = pm.loss(pp, torch.from_numpy(toks), torch.from_numpy(tgts),
                          torch.from_numpy(pos))
-    assert float(aux["aux"]) == 0.0
+    assert float(aux["aux"]) == pytest.approx(float(raux["aux"]), rel=1e-6, abs=0)
+    assert (float(aux["aux"]) > 0) == (rcfg.moe is not None)
     pg = _grads(ploss, pp)
     pl, ploss = pl.detach().to(torch.float32).numpy(), ploss.detach()
     if dtype == "fp32":
