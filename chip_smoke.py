@@ -219,6 +219,32 @@ Phases (any failure raises and the script exits non-zero):
               card, exit 0.  No kernel of ``csrc/`` runs here (attention,
               MoE dispatch and MLA are plain torch, as they are plain
               ``jnp`` in the reference), and none may be launched;
+12h. lm_families -- the recurrent, hybrid, M-RoPE and encoder-decoder
+              families (models/ssm.py, models/encdec.py) in seven checks:
+              (a)-(d) each arch at full width and depth through
+              ``launch.serve.main``, bf16, batch 8: zamba2-1.2b (38 layers,
+              32 Mamba2 + 6 invocations of one shared attention block; ctx
+              2048, prompt 128, 128 generated), then one steady step under
+              torch.profiler; rwkv6-7b (32 layers; prompt 64, 64
+              generated); qwen2-vl-7b (28 layers, M-RoPE decode positions;
+              ctx 2048, prompt 128, 128 generated); whisper-small (12 + 12
+              layers, 1,500 encoder frames encoded once; ctx 448, prompt 4,
+              128 generated; the encode's seconds).  Each prints ms a step,
+              tokens/s, weight, cache and state bytes, and the HBM share:
+              the bytes a step reads at least (every weight once, the
+              shared block once an invocation, rwkv6's unread ``ffn`` left
+              out, every cache and state, whisper's encoder output twice a
+              layer) over the step, of 3.35 TB/s; (e) decode == prefill in
+              float32 at full width over 128 positions, max relative error
+              < 2e-3, depth cut to rwkv6 2, zamba2 6 (one period), qwen2-vl
+              2 (distinct h and w streams), whisper 2 + 2; (f) the four
+              reduced configs in float32, 12 decode steps, one training
+              loss and its gradients on the card against the CPU within
+              1e-4 of the largest value; (g) ``launch.serve --reduced`` for
+              the four and ``launch.train --reduced`` (40 steps, a failure
+              at 12) for whisper-small, qwen2-vl-7b and zamba2-1.2b as
+              subprocesses, all at once: exit 0, one restart, the loss
+              falls.  No kernel of ``csrc/`` may be launched;
 13. cli     -- ``python -m repro_torch.cli`` in subprocesses on
               synthetic:temperature:64, tiled (tile 16) and monolithic,
               Lorenzo: compress -> info -> region -> decompress -> verify;
@@ -342,6 +368,18 @@ SERVE_PREFILL, SERVE_PREFILL_LAYERS = 1024, 6
 SERVE_MOE = (("llama4-scout-17b-a16e", 4), ("deepseek-v3-671b", 4))  # (c): arch, layers kept
 SERVE_MOE_BATCH, SERVE_MOE_PROMPT, SERVE_MOE_GEN, SERVE_MOE_CTX = 4, 16, 49, 1024  # 64 steps
 SERVE_CPU_STEPS = 12  # (d)
+# lm_families: (a)-(d) each arch at full width and depth through the serving
+# driver, bf16, batch 8: (arch, ctx, prompt, generated); rwkv6 keeps no
+# cache that grows, and 448 is whisper's decoder context
+FAM_BATCH = 8
+FAM_SERVE = (("zamba2-1.2b", 2048, 128, 128), ("rwkv6-7b", 128, 64, 64),
+             ("qwen2-vl-7b", 2048, 128, 128), ("whisper-small", 448, 4, 128))
+FAM_ARCHS = tuple(arch for arch, *_ in FAM_SERVE)
+# (e): positions, and the depth kept (zamba2: one period of 6; whisper: 2 + 2)
+FAM_PREFILL = 128
+FAM_PREFILL_LAYERS = {"rwkv6-7b": 2, "zamba2-1.2b": 6, "qwen2-vl-7b": 2, "whisper-small": 2}
+FAM_CPU_STEPS = 12  # (f)
+FAM_TRAIN = ("whisper-small", "qwen2-vl-7b", "zamba2-1.2b")  # (g): the trained drivers
 PROFILED = 4  # (a): decode steps in the torch.profiler window, a step reported
 LOOP_STEPS, LOOP_EVERY, LOOP_FAILS = 40, 10, (17, 31)  # checkpoint (b): the reference test's
 ENHANCE_RTOL = 1e-5  # |kernel - plain| <= ENHANCE_RTOL * (1 + max|plain|)
@@ -2114,13 +2152,113 @@ def tree_bytes(t) -> int:
     return sum(x.numel() * x.element_size() for _, x in tree.leaves(t))
 
 
+def decode_read_bytes(model, params, cache_bytes: int, enc_out_bytes: int = 0) -> int:
+    """The bytes one decode step reads at least: every weight once (the
+    shared block once an invocation; rwkv6's ``ffn``, which no forward
+    reads, left out), every cache and state whole, and an
+    encoder-decoder's encoder output twice a decoder layer (cross-attention
+    recomputes its keys and values from it every step)."""
+    from repro_torch.models.encdec import EncDecLM
+
+    if isinstance(model, EncDecLM):
+        return tree_bytes(params) + cache_bytes + 2 * model.cfg.n_layers * enc_out_bytes
+    total = cache_bytes
+    for key, sub in params.items():
+        if not key.startswith("stage"):
+            total += 0 if key == "shared" else tree_bytes(sub)
+            continue
+        stage = model.stages[int(key[len("stage"):])]
+        for spec, slot in zip(stage.specs, sub):
+            if slot is None:
+                total += stage.count * tree_bytes(params["shared"])
+            else:
+                total += tree_bytes({k: v for k, v in slot.items()
+                                     if not (spec.kind == "rwkv6" and k == "ffn")})
+    return total
+
+
+def serve_driver(arch: str, batch: int, ctx: int, prompt: int, gen: int, params):
+    """``launch.serve.main`` at full size with ``params`` (the driver's own
+    seeded init, made by the caller so that it can count them) -> (the
+    generated tokens, the driver's ``key=value`` pairs, its wall seconds,
+    its stdout)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        tokens = serve.main(["--arch", arch, "--batch", str(batch), "--ctx", str(ctx),
+                             "--prompt-len", str(prompt), "--gen-len", str(gen)], params=params)
+    wall = time.perf_counter() - t
+    said = dict(kv.split("=", 1) for kv in out.getvalue().split() if "=" in kv)
+    return tokens, said, wall, out.getvalue().strip()
+
+
+def fresh_peak() -> int:
+    """Resets the card's peak; returns the bytes still allocated (the base
+    of the next check's peak)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def profile_decode(step, params, cache, batch: int, extra=None) -> tuple[float, dict]:
+    """A steady decode step: its ms over 32 steps after 16 warm-up steps,
+    then PROFILED steps under torch.profiler after a dropped warm-up step:
+    (steady ms, {"steps", "ms", "device_ops", "device_busy_ms",
+    "device_busy_share", "top_device_ms"}), a step each.  ``cache`` is
+    written (positions 0-52); ``extra`` joins every step's batch."""
+    import torch
+
+    dev = torch.device("cuda")
+    extra = extra or {}
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    positions = torch.arange(64, dtype=torch.int32, device=dev)
+    run = lambda p: step(params, cache, {"token": tok, "pos": positions[p], **extra})
+    with torch.no_grad():
+        for p in range(16):  # warm-up
+            run(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in range(16, 48):
+            run(p)
+        torch.cuda.synchronize()
+        steady_ms = (time.perf_counter() - t0) / 32 * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        warm_then_trace = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=warm_then_trace) as prof:
+            run(48)
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            for p in range(49, 49 + PROFILED):
+                run(p)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3 / PROFILED
+            prof.step()
+    # device-side events only (kernels, memcpy, memset), not the step's own span
+    on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")]
+    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3 / PROFILED
+    top = sorted(((e.key, e.self_device_time_total / 1e3 / PROFILED) for e in on_dev),
+                 key=lambda kv: -kv[1])[:8]
+    return steady_ms, {"steps": PROFILED, "ms": prof_ms,
+                       "device_ops": sum(e.count for e in on_dev) / PROFILED,
+                       "device_busy_ms": busy_ms, "device_busy_share": busy_ms / prof_ms,
+                       "top_device_ms": dict(top)}
+
+
 def lm_serve_path() -> None:
     """LM serving on the card (module docstring, phase 12g): five checks,
     each emitting its JSON line.  Checks that no kernel of ``csrc/`` is
     launched (the path has none)."""
-    import contextlib
     import dataclasses
-    import io
 
     import numpy as np
     import torch
@@ -2136,65 +2274,20 @@ def lm_serve_path() -> None:
     dev = torch.device("cuda")
     ops.reset_launches()
 
-    def fresh_peak() -> int:
-        """Resets the peak; returns the bytes still allocated (the base of
-        the next check's peak)."""
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        return torch.cuda.memory_allocated()
-
     # (a) gemma3-1b at full depth through the driver, then one profiled step
     cfg = get_config(SERVE_ARCH)
+    model = DecoderLM(cfg, device=dev)
     resident = fresh_peak()
-    out = io.StringIO()
-    t = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        gen = serve.main(["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH), "--ctx",
-                          str(SERVE_CTX), "--prompt-len", str(SERVE_PROMPT), "--gen-len",
-                          str(SERVE_GEN)])
-    wall = time.perf_counter() - t
+    params = model.init(torch.Generator(device=dev).manual_seed(0))  # the driver's own init
+    gen, said, wall, stdout = serve_driver(SERVE_ARCH, SERVE_BATCH, SERVE_CTX, SERVE_PROMPT,
+                                           SERVE_GEN, params)
     peak = torch.cuda.max_memory_allocated()
-    said = dict(kv.split("=", 1) for kv in out.getvalue().split() if "=" in kv)
     ms, tok_s = float(said["ms/step"]), float(said["tokens/s"].replace(",", ""))
     check(gen.shape == (SERVE_BATCH, SERVE_GEN) and gen.min() >= 0 and gen.max() < cfg.vocab,
           f"lm_serve (a): generated {gen.shape}, range [{gen.min()}, {gen.max()}]")
-    model = DecoderLM(cfg, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
     cache = model.init_cache(SERVE_BATCH, SERVE_CTX, dtype=cfg.compute_dtype)
-    step = make_decode_step(model)
-    tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device=dev)
-    positions = torch.arange(64, dtype=torch.int32, device=dev)
-    with torch.no_grad():
-        for p in range(16):  # warm-up
-            step(params, cache, {"token": tok, "pos": positions[p]})
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for p in range(16, 48):
-            step(params, cache, {"token": tok, "pos": positions[p]})
-        torch.cuda.synchronize()
-        steady_ms = (time.perf_counter() - t0) / 32 * 1e3
-        # PROFILED steps under torch.profiler after a dropped warm-up step
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        warm_then_trace = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-        with torch.profiler.profile(activities=acts, schedule=warm_then_trace) as prof:
-            step(params, cache, {"token": tok, "pos": positions[48]})
-            torch.cuda.synchronize()
-            prof.step()
-            t0 = time.perf_counter()
-            for p in range(49, 49 + PROFILED):
-                step(params, cache, {"token": tok, "pos": positions[p]})
-            torch.cuda.synchronize()
-            prof_ms = (time.perf_counter() - t0) * 1e3 / PROFILED
-            prof.step()
-    # device-side events only (kernels, memcpy, memset), not the step's own span
-    on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")]
-    dev_ops = sum(e.count for e in on_dev) / PROFILED
-    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3 / PROFILED
-    top = sorted(((e.key, e.self_device_time_total / 1e3 / PROFILED) for e in on_dev),
-                 key=lambda kv: -kv[1])[:8]
-    check(dev_ops > 0, "lm_serve (a): the profiler saw no device operation")
+    steady_ms, prof = profile_decode(make_decode_step(model), params, cache, SERVE_BATCH)
+    check(prof["device_ops"] > 0, "lm_serve (a): the profiler saw no device operation")
     w_bytes, kv_bytes = tree_bytes(params), tree_bytes(cache)
     n_params = sum(x.numel() for _, x in tree.leaves(params))
     emit({"phase": "lm_serve", "check": "a", "arch": SERVE_ARCH, "layers": cfg.n_layers,
@@ -2206,12 +2299,10 @@ def lm_serve_path() -> None:
           "weight_bytes": w_bytes, "kv_cache_bytes": kv_bytes,
           "hbm_share": (w_bytes + kv_bytes) / (ms / 1e3) / HBM_BYTES_PER_S,
           "steady_hbm_share": (w_bytes + kv_bytes) / (steady_ms / 1e3) / HBM_BYTES_PER_S,
-          "profiled_step": {"steps": PROFILED, "ms": prof_ms, "device_ops": dev_ops,
-                            "device_busy_ms": busy_ms, "device_busy_share": busy_ms / prof_ms,
-                            "busy_share_of_steady_step": busy_ms / steady_ms,
-                            "top_device_ms": dict(top)},
+          "profiled_step": {**prof,
+                            "busy_share_of_steady_step": prof["device_busy_ms"] / steady_ms},
           "device_peak_bytes": peak, "resident_before_bytes": resident,
-          "driver_stdout": out.getvalue().strip()[-300:]})
+          "driver_stdout": stdout[-300:]})
     del params, cache, model
 
     # (b) decode == prefill at full width, float32, past the window
@@ -2344,6 +2435,199 @@ def lm_serve_path() -> None:
           "kv_cache_bytes": int(said["kv_cache_bytes"]),
           "device_peak_bytes": int(said["device_peak_bytes"]),
           "stdout": r.stdout.strip()[-300:], "launches": launches})
+
+
+def lm_families_path(tmp: Path) -> None:
+    """The recurrent, hybrid, M-RoPE and encoder-decoder families on the
+    card (module docstring, phase 12h): seven checks, each emitting its
+    JSON line.  Checks that no kernel of ``csrc/`` is launched (the path
+    has none)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import build_model, get_config, get_family
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.models.encdec import EncDecLM
+
+    dev = torch.device("cuda")
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+    model_class = lambda arch: EncDecLM if get_family(arch) == "encdec" else DecoderLM
+
+    # (a)-(d): each arch at full width and depth through the serving driver
+    for check_id, (arch, ctx, prompt, gen_len) in zip("abcd", FAM_SERVE):
+        model, cfg = build_model(arch, device=dev)
+        resident = fresh_peak()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gen, said, wall, stdout = serve_driver(arch, FAM_BATCH, ctx, prompt, gen_len, params)
+        peak = torch.cuda.max_memory_allocated()
+        check(gen.shape == (FAM_BATCH, gen_len) and gen.min() >= 0 and gen.max() < cfg.vocab,
+              f"lm_families ({check_id}) {arch}: generated {gen.shape}, "
+              f"range [{gen.min()}, {gen.max()}]")
+        ms, cache_bytes = float(said["ms/step"]), int(said["kv_cache_bytes"])
+        enc_out_bytes = (FAM_BATCH * cfg.enc_seq * cfg.d_model
+                         * torch.finfo(cfg.compute_dtype).bits // 8)
+        read = decode_read_bytes(model, params, cache_bytes, enc_out_bytes)
+        line = {"phase": "lm_families", "check": check_id, "arch": arch,
+                "layers": cfg.n_layers + cfg.enc_layers, "d_model": cfg.d_model,
+                "vocab": cfg.vocab, "params": sum(x.numel() for _, x in tree.leaves(params)),
+                "dtype": "bf16", "batch": FAM_BATCH, "ctx": ctx, "prompt": prompt,
+                "gen": gen_len, "steps": prompt + gen_len - 1, "init_s": init_s,
+                "driver_s": wall, "ms_per_step": ms,
+                "tokens_per_s": float(said["tokens/s"].replace(",", "")),
+                "weight_bytes": tree_bytes(params), "cache_bytes": cache_bytes,
+                "step_read_bytes": read, "hbm_share": read / (ms / 1e3) / HBM_BYTES_PER_S,
+                "device_peak_bytes": peak, "resident_before_bytes": resident,
+                "driver_stdout": stdout[-300:]}
+        if cfg.enc_layers:
+            line["encode_s"] = float(said["encode_s"])
+        if check_id == "a":  # a profiled steady step, as lm_serve (a)
+            cache = model.init_cache(FAM_BATCH, ctx, dtype=cfg.compute_dtype)
+            steady_ms, prof = profile_decode(make_decode_step(model), params, cache, FAM_BATCH)
+            check(prof["device_ops"] > 0, "lm_families (a): the profiler saw no device operation")
+            line.update(steady_ms_per_step=steady_ms,
+                        steady_hbm_share=read / (steady_ms / 1e3) / HBM_BYTES_PER_S,
+                        profiled_step={**prof, "busy_share_of_steady_step":
+                                       prof["device_busy_ms"] / steady_ms})
+            del cache
+        emit(line)
+        del params, model
+
+    # (e) decode == prefill in float32 at full width, cut in depth
+    worst, t0 = {}, time.perf_counter()
+    resident = fresh_peak()
+    for arch, layers in FAM_PREFILL_LAYERS.items():
+        full = get_config(arch)
+        cut = dict(dtype="fp32", remat=False, n_layers=layers, pattern=full.pattern[:layers])
+        if full.enc_layers:
+            cut["enc_layers"] = layers
+        model = model_class(arch)(dataclasses.replace(full, **cut), device=dev)
+        cfg = model.cfg
+        params = model.init(torch.Generator(device=dev).manual_seed(1))
+        rng = np.random.default_rng(1)
+        P = FAM_PREFILL
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, P)).astype(np.int32)).to(dev)
+        pos = torch.arange(P, dtype=torch.int32, device=dev)
+        mrope = cfg.attn is not None and cfg.attn.mrope_sections is not None
+        if mrope:  # the t stream in order, h and w as an image's rows and columns would
+            pos = torch.from_numpy(np.stack([np.broadcast_to(np.arange(P), (2, P)),
+                                             rng.integers(0, P, (2, P)),
+                                             rng.integers(0, P, (2, P))], 1).astype(np.int32)
+                                   ).to(dev)
+        with torch.no_grad():
+            if cfg.enc_layers:
+                feats = rng.normal(0, 1, (2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+                enc_out = model.encode(params, torch.from_numpy(feats).to(dev))
+                full_logits, _ = model.decode(params, enc_out, toks, pos)
+            else:
+                full_logits, _, _ = model.apply(params, toks, pos)
+            cache = model.init_cache(2, P, dtype=torch.float32)
+            dec = torch.empty_like(full_logits)
+            for p in range(P):
+                tok = toks[:, p:p + 1]
+                if cfg.enc_layers:
+                    dec[:, p], cache = model.decode_step(params, cache, enc_out, tok, pos[p])
+                elif mrope:
+                    dec[:, p], cache = model.decode_step(params, cache, tok, pos[:, :, p:p + 1])
+                else:
+                    dec[:, p], cache = model.decode_step(params, cache, tok, pos[p])
+            rel = float((full_logits - dec).abs().max()) / float(full_logits.abs().max())
+        check(bool(torch.isfinite(full_logits).all()) and rel < 2e-3,
+              f"lm_families (e) {arch}: decode != prefill, max relative error {rel}")
+        worst[arch] = {"layers": f"{layers} of {full.n_layers}" + (
+            f" (+ {layers} of {full.enc_layers} encoder)" if full.enc_layers else ""),
+                       "max_rel_err": rel}
+        del params, cache, full_logits, dec, model
+    emit({"phase": "lm_families", "check": "e", "dtype": "fp32", "batch": 2,
+          "positions": FAM_PREFILL, "bound": 2e-3, "archs": worst,
+          "seconds": time.perf_counter() - t0,
+          "device_peak_bytes": torch.cuda.max_memory_allocated(),
+          "resident_before_bytes": resident})
+
+    # (f) the reduced configs on the card against the CPU, float32
+    worst, t0 = {}, time.perf_counter()
+    for arch in FAM_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="fp32", remat=False)
+        models = {"cpu": model_class(arch)(cfg, device="cpu"),
+                  "cuda": model_class(arch)(cfg, device=dev)}
+        init = models["cpu"].init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(2)
+        toks = rng.integers(0, cfg.vocab, (2, FAM_CPU_STEPS + 1)).astype(np.int32)
+        feats = rng.normal(0, 1, (2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        got = {}
+        for name, model in models.items():
+            on = torch.device(name)
+            params = tree.rebuild(init, lambda _, x: x.detach().clone().to(on))
+            t = torch.from_numpy(toks).to(on)
+            cache = model.init_cache(2, 16, dtype=torch.float32)
+            extra = {}
+            logits = []
+            with torch.no_grad():
+                if cfg.enc_layers:
+                    extra["enc_out"] = model.encode(params, torch.from_numpy(feats).to(on))
+                step = make_decode_step(model)
+                for p in range(FAM_CPU_STEPS):
+                    lg, cache = step(params, cache, {"token": t[:, p:p + 1], "pos": p, **extra})
+                    logits.append(lg.cpu())
+            leaves = [x.requires_grad_(True) for _, x in tree.leaves(params)]
+            if cfg.enc_layers:
+                loss, _ = model.loss(params, torch.from_numpy(feats).to(on), t[:, :-1], t[:, 1:])
+            else:
+                pos = torch.arange(FAM_CPU_STEPS, device=on)
+                if cfg.attn is not None and cfg.attn.mrope_sections is not None:
+                    pos = pos[None, None].expand(2, 3, FAM_CPU_STEPS)
+                loss, _ = model.loss(params, t[:, :-1], t[:, 1:], pos)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            got[name] = (logits, float(loss.detach()),
+                         [None if g is None else g.cpu() for g in grads])
+        (la, lossa, ga), (lb, lossb, gb) = got["cpu"], got["cuda"]
+        errs = {"decode": max(float((b - a).abs().max()) / float(a.abs().max())
+                              for a, b in zip(la, lb)),
+                "loss": abs(lossb - lossa) / abs(lossa),
+                "grads": max(float((b - a).abs().max()) / (float(a.abs().max()) + 1e-30)
+                             for a, b in zip(ga, gb) if a is not None)}
+        check(all(e <= 1e-4 for e in errs.values()) and
+              [a is None for a in ga] == [b is None for b in gb],
+              f"lm_families (f) {arch}: card != CPU: {errs}")
+        worst[arch] = errs
+    emit({"phase": "lm_families", "check": "f", "dtype": "fp32", "steps": FAM_CPU_STEPS,
+          "bound": 1e-4, "max_err_over_max": worst, "seconds": time.perf_counter() - t0})
+
+    # (g) the reduced drivers as subprocesses, all at once
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    runs = {("serve", a): [sys.executable, "-m", "repro_torch.launch.serve", "--arch", a,
+                           "--reduced"] for a in FAM_ARCHS}
+    runs.update({("train", a): [sys.executable, "-m", "repro_torch.launch.train", "--arch", a,
+                                "--reduced", "--steps", "40", "--batch", "4", "--seq", "16",
+                                "--lr", "3e-3", "--ckpt-every", "8", "--inject-failure-at",
+                                "12", "--ckpt-dir", str(tmp / f"lm_families_{a}")]
+                 for a in FAM_TRAIN})
+    procs = {k: subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True) for k, cmd in runs.items()}
+    drivers = {}
+    for (kind, arch), proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        said = dict(kv.split("=", 1) for kv in out.split() if "=" in kv)
+        ok = proc.returncode == 0 and ("tokens/s=" in out if kind == "serve" else
+                                       said.get("restarts") == "1"
+                                       and float(said["loss[-1]"]) < float(said["loss[0]"]))
+        check(ok, f"lm_families (g) {kind} {arch}: exit {proc.returncode}: {out[-1000:]} "
+                  f"{err[-2000:]}")
+        drivers[f"{kind} {arch}"] = out.strip().splitlines()[-1][-200:]
+    launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()), f"lm_families: a codec kernel was launched: {launches}")
+    emit({"phase": "lm_families", "check": "g", "seconds": time.perf_counter() - t0,
+          "drivers": drivers, "launches": launches,
+          "phase_seconds": time.perf_counter() - t_phase})
 
 
 def legacy_inputs(blob: bytes, dev):
@@ -3116,6 +3400,7 @@ def main() -> int:
         dist_launches = gwlz_dist_path(x_np, Path(tmp))
         lm_launches = lm_train_path(Path(tmp))
         lm_serve_path()
+        lm_families_path(Path(tmp))
         cli_path(Path(tmp))
     path_launches = {"main": launches, "gwlz": gw["gwlz"][2], "szjx": sz_launches,
                      "interp": interp_launches, "interp_tiled": interp_tiled_launches,

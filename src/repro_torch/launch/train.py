@@ -26,7 +26,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.configs import ARCH_IDS, build_model
+from repro_torch.configs import ARCH_IDS, build_model, get_family
 from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.launch.steps import TrainOptions, make_train_step
@@ -108,9 +108,23 @@ def main(argv=None):
         step_fn, adam_cfg = make_train_step(model, cfg, opts)
         opt_state = adamw.init(params, adam_cfg)
         pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab, args.batch, args.seq, seed=args.seed))
+        mrope = cfg.attn is not None and cfg.attn.mrope_sections is not None
+        encdec = get_family(args.arch) == "encdec"
 
         def batch_fn(step):
-            return {k: torch.from_numpy(v).to(device) for k, v in pipe.batch_at(step).items()}
+            """The step's tokens; M-RoPE's positions (every stream
+            ``arange(seq)``) and an encoder-decoder's frame embeddings
+            (float32 normals from ``default_rng(step)``, cast to the compute
+            dtype), as the reference driver makes them."""
+            batch = {k: torch.from_numpy(v).to(device) for k, v in pipe.batch_at(step).items()}
+            if mrope:
+                batch["positions"] = torch.arange(args.seq, dtype=torch.int32, device=device)[
+                    None, None, :].expand(args.batch, 3, args.seq)
+            if encdec:
+                feats = np.random.default_rng(step).normal(
+                    size=(args.batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+                batch["enc_feats"] = torch.from_numpy(feats).to(device, cfg.compute_dtype)
+            return batch
 
         manager = CheckpointManager(args.ckpt_dir, gwlz_rel_eb=args.gwlz_ckpt_eb, device=device)
         monitor = HeartbeatMonitor(n_workers=1)

@@ -7,9 +7,8 @@ cache and absorbed decode.
 
 Attention has no Pallas kernel in the reference, so this is plain torch
 and mirrors the reference's einsums, masks and float32 softmax; a fused
-kernel is later work.  M-RoPE and cross-attention (qwen2-vl, whisper) are
-not ported yet: ``models/decoder.py`` refuses a configuration that uses
-them.
+kernel is later work.  ``gqa_attention`` also covers M-RoPE (qwen2-vl)
+and cross-attention over an encoder's output (whisper).
 
 Decode caches are updated in place: a cache passed to ``gqa_attention``
 or ``mla_attention`` is written and returned, and the caller carries the
@@ -24,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.common import apply_rope, normal_init, rms_norm
+from repro_torch.models.common import apply_mrope, apply_rope, normal_init, rms_norm
 
 MASK_CAUSAL, MASK_SLIDING, MASK_CHUNKED, MASK_BIDIR = 0, 1, 2, 3
 _UNWRITTEN = 1 << 30  # the position of a ring slot not written yet: in the future
@@ -48,7 +47,7 @@ class AttnConfig:
     rope_theta: float = 1e4
     qk_norm: bool = False
     mla: Optional[MLAConfig] = None
-    # the reference's M-RoPE (qwen2-vl); set, it is refused (not ported)
+    # M-RoPE (qwen2-vl): half-dim sections of the t, h, w position streams
     mrope_sections: Optional[tuple[int, ...]] = None
     mrope_theta: float = 1e6
     softcap: float = 0.0  # gemma-style logit softcapping (0 = off)
@@ -182,10 +181,15 @@ def _update_slice(buf: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> 
 
 def gqa_attention(params: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor, *,
                   mask_mode: int = MASK_CAUSAL, window: int = 0, rope_on: bool = True,
-                  rope_theta: float | None = None,
-                  cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
-    """Self-attention over x [B, S, d] at positions [S] -> (y [B, S, d],
-    cache).
+                  rope_theta: float | None = None, cache: dict | None = None,
+                  kv_source: torch.Tensor | None = None) -> tuple[torch.Tensor, dict | None]:
+    """Attention of x [B, S, d] at positions [S] ([B, 3, S] under M-RoPE)
+    -> (y [B, S, d], cache).
+
+    With ``kv_source`` [B, Lk, d] (cross-attention) the keys and values
+    come from it, unrotated, at key positions ``arange(Lk)``.  Under M-RoPE
+    q and k are rotated per stream, and the causal order is the t
+    stream's largest position over the batch.
 
     Cache layout: {"k": [B, C, K, D], "v": [B, C, K, D], "pos": int32
     scalar}, where C is the full context for global layers or the ring's
@@ -193,18 +197,25 @@ def gqa_attention(params: dict, cfg: AttnConfig, x: torch.Tensor, positions: tor
     position of the first new token.  One new token goes to slot
     ``pos % C``, several to slot 0 (the reference's rule)."""
     theta = cfg.rope_theta if rope_theta is None else rope_theta
+    src = x if kv_source is None else kv_source
     q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
-    k = torch.einsum("bsd,dke->bske", x, params["wk"])
-    v = torch.einsum("bsd,dke->bske", x, params["wv"])
+    k = torch.einsum("bsd,dke->bske", src, params["wk"])
+    v = torch.einsum("bsd,dke->bske", src, params["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
-    if rope_on:
+    if rope_on and kv_source is None and cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.mrope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.mrope_theta)
+    elif rope_on and kv_source is None:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
+    pos1d = positions if positions.ndim == 1 else positions[:, 0, :].amax(dim=0)
 
     if cache is None:
-        out = attend(q, k, v, positions, positions, mask_mode=mask_mode, window=window,
+        k_pos = (pos1d if kv_source is None
+                 else torch.arange(k.shape[1], device=k.device))
+        out = attend(q, k, v, pos1d, k_pos, mask_mode=mask_mode, window=window,
                      softcap=cfg.softcap, banded=True)
     else:
         # decode: write the new kv into the (ring) cache, attend over it
@@ -218,7 +229,7 @@ def gqa_attention(params: dict, cfg: AttnConfig, x: torch.Tensor, positions: tor
         # sentinel would let zero vectors in as an attention sink)
         k_abs = pos - torch.remainder(pos - torch.arange(C, device=pos.device), C)
         k_positions = torch.where(k_abs < 0, _UNWRITTEN, k_abs)
-        out = attend(q, cache["k"], cache["v"], positions, k_positions, mask_mode=mask_mode,
+        out = attend(q, cache["k"], cache["v"], pos1d, k_positions, mask_mode=mask_mode,
                      window=window, softcap=cfg.softcap)
         pos.add_(q.shape[1])
     return torch.einsum("bshe,hed->bsd", out, params["wo"]), cache

@@ -1,25 +1,32 @@
 """The decoder LM, port of ``repro/models/decoder.py`` (``:25-334``):
 ``LayerSpec``, ``ModelConfig``, stages, and ``DecoderLM``'s init, decode
-caches, forward (with or without a cache), loss and decode step, for the
-attention families: dense GQA (granite, yi, llama3), sliding-window with
-qk-norm and a scaled embedding (gemma3), chunked-local with NoPE globals
-and MoE (llama4-scout), and MLA with MoE (deepseek-v3).
+caches, forward (with or without a cache), loss and decode step, for
+every decoder family: dense GQA (granite, yi, llama3), sliding-window
+with qk-norm and a scaled embedding (gemma3), chunked-local with NoPE
+globals and MoE (llama4-scout), MLA with MoE (deepseek-v3), M-RoPE
+(qwen2-vl), RWKV6 (rwkv6-7b), and Mamba2 with one shared attention block
+(zamba2).
 
 Parameters are the reference's tree: ``embed``, ``final_norm``,
-``lm_head`` (untied models), and per stage ``stage{i}``, a list over the
-stage's period of per-layer dicts whose leaves are stacked on a leading
-``count`` axis.  So checkpoints and AdamW trees match the reference's.  A
-forward takes each stacked leaf's per-layer views with one
-``torch.unbind`` (whose backward stacks the layers' gradients into one
-tensor) and runs the layers in order; without a cache and with
-``cfg.remat`` each period runs under ``torch.utils.checkpoint`` (the
-reference's ``jax.checkpoint`` of its scan body).  Caches stack the same
-way, one tree a stage slot with a leading ``count`` axis, and a decode
-writes them in place through the same per-layer views.
+``lm_head`` (untied models), ``shared`` (the shared block), and per stage
+``stage{i}``, a list over the stage's period of per-layer dicts whose
+leaves are stacked on a leading ``count`` axis (``None`` in a shared
+block's slot: ``apply`` runs ``params["shared"]`` there).  So checkpoints
+and AdamW trees match the reference's.  A forward takes each stacked
+leaf's per-layer views with one ``torch.unbind`` (whose backward stacks
+the layers' gradients into one tensor) and runs the layers in order;
+without a cache and with ``cfg.remat`` each period runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+scan body).  Caches stack the same way, one tree a stage slot with a
+leading ``count`` axis (each invocation of the shared block has its own
+KV cache), and a decode writes them in place through the same per-layer
+views: KV caches, RWKV6's token shifts and WKV state, Mamba2's conv and
+SSM states.
 
-Mechanisms not ported yet are refused when a model is built
-(``NotImplementedError``): RWKV6, Mamba2, shared blocks, M-RoPE, the
-encoder-decoder, layer norm and GELU.
+RWKV6 layers keep the reference's feed-forward ``ffn`` (its spec has
+``has_ffn``): the reference initialises it and never reads it (the
+channel mix runs from ``mix``), so here too it is carried and read by no
+forward; its gradient is zero (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ from repro_torch import tree
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
-from repro_torch.models.common import normal_init, rms_norm
+from repro_torch.models import ssm as S
+from repro_torch.models.common import layer_norm, normal_init, rms_norm
 
 
 @dataclass(frozen=True)
@@ -57,8 +65,8 @@ class ModelConfig:
     vocab: int
     attn: Optional[A.AttnConfig] = None
     moe: Optional[M.MoEConfig] = None
-    rwkv: Optional[object] = None
-    mamba: Optional[object] = None
+    rwkv: Optional[S.RWKV6Config] = None
+    mamba: Optional[S.Mamba2Config] = None
     act: str = "silu"
     norm: str = "rms"
     pattern: tuple[LayerSpec, ...] = ()   # len == n_layers (built by configs/)
@@ -112,61 +120,107 @@ def build_stages(pattern: tuple[LayerSpec, ...], max_period: int = 8) -> tuple[S
     return tuple(stages)
 
 
-def _unported(cfg: ModelConfig) -> list[str]:
-    """The mechanisms ``cfg`` asks for that the port does not have yet."""
-    a = cfg.attn
-    bad = [name for name, on in (
-        ("an attention config", a is None), ("RWKV6", cfg.rwkv is not None),
-        ("Mamba2", cfg.mamba is not None), ("shared blocks", cfg.shared_block),
-        ("an encoder", cfg.enc_layers > 0), (f"act {cfg.act!r}", cfg.act != "silu"),
-        (f"norm {cfg.norm!r}", cfg.norm != "rms")) if on]
-    if a is not None and a.mrope_sections is not None:
-        bad.append("M-RoPE")
-    for spec in cfg.pattern:
-        bad += [name for name, on in (
-            (f"layer kind {spec.kind!r}", spec.kind not in ("attn", "mla")),
-            ("layers without a feed-forward", not spec.has_ffn)) if on]
-    return sorted(set(bad))
-
-
 def _init_layer(cfg: ModelConfig, spec: LayerSpec, generator: torch.Generator, dtype) -> dict:
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=generator.device)
-    init_attn = A.init_mla_params if spec.kind == "mla" else A.init_gqa_params
-    p = {"ln1": zeros(), "attn": init_attn(cfg.attn, generator=generator, dtype=dtype),
-         "ln2": zeros()}
-    if spec.moe:
-        p["ffn"] = M.init_moe_params(cfg.d_model, cfg.moe, generator=generator, dtype=dtype)
+    p = {"ln1": zeros()}
+    if spec.kind in ("attn", "shared_attn"):
+        p["attn"] = A.init_gqa_params(cfg.attn, generator=generator, dtype=dtype)
+    elif spec.kind == "mla":
+        p["attn"] = A.init_mla_params(cfg.attn, generator=generator, dtype=dtype)
+    elif spec.kind == "rwkv6":
+        p["mix"] = S.init_rwkv6_params(cfg.rwkv, generator=generator, dtype=dtype)
+    elif spec.kind == "mamba2":
+        p["mix"] = S.init_mamba2_params(cfg.mamba, generator=generator, dtype=dtype)
     else:
-        p["ffn"] = M.init_mlp_params(cfg.d_model, cfg.d_ff, generator=generator, dtype=dtype)
+        raise ValueError(spec.kind)
+    if spec.has_ffn:
+        p["ln2"] = zeros()
+        if spec.moe:
+            p["ffn"] = M.init_moe_params(cfg.d_model, cfg.moe, generator=generator, dtype=dtype)
+        else:
+            d_ff = cfg.shared_d_ff if spec.kind == "shared_attn" and cfg.shared_d_ff else cfg.d_ff
+            p["ffn"] = M.init_mlp_params(cfg.d_model, d_ff, cfg.act, generator=generator,
+                                         dtype=dtype)
     return p
+
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``cfg.norm``: "rms", or "layer" with scale ``1 + scale`` (rounded to
+    the scale's dtype, as the reference's) and a zero bias."""
+    if cfg.norm == "rms":
+        return rms_norm(x, scale)
+    return layer_norm(x, 1.0 + scale, torch.zeros_like(scale))
 
 
 def _apply_layer(params: dict, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                  positions: torch.Tensor, cache: dict | None):
-    """Returns (x, aux loss); the aux loss is None for a dense
-    feed-forward.  A cache is written in place."""
-    h = rms_norm(x, params["ln1"])
-    if spec.kind == "mla":
-        y, _ = A.mla_attention(params["attn"], cfg.attn, h, positions, cache=cache)
-    else:
+    """Returns (x, aux loss); the aux loss is None for a layer without an
+    MoE feed-forward.  A cache is written in place."""
+    h = _norm(cfg, x, params["ln1"])
+    if spec.kind in ("attn", "shared_attn"):
         y, _ = A.gqa_attention(params["attn"], cfg.attn, h, positions,
                                mask_mode=spec.mask_mode, window=spec.window,
                                rope_on=spec.rope_on, rope_theta=spec.rope_theta, cache=cache)
-    x = x + y
-    h = rms_norm(x, params["ln2"])
-    if spec.moe:
-        y, aux = M.apply_moe(params["ffn"], h, cfg.moe)
+    elif spec.kind == "mla":
+        y, _ = A.mla_attention(params["attn"], cfg.attn, h, positions, cache=cache)
+    elif spec.kind == "rwkv6":
+        y, _ = S.rwkv6_time_mix(params["mix"], cfg.rwkv, h, None if cache is None else cache["tm"])
+    elif spec.kind == "mamba2":
+        y, _ = S.mamba2_mix(params["mix"], cfg.mamba, h, cache)
     else:
-        y, aux = M.apply_mlp(params["ffn"], h), None
-    return x + y, aux
+        raise ValueError(spec.kind)
+    x = x + y
+    aux = None
+    if spec.has_ffn:
+        h = _norm(cfg, x, params["ln2"])
+        if spec.kind == "rwkv6":  # the channel mix; the layer's ``ffn`` is never read
+            y, _ = S.rwkv6_channel_mix(params["mix"], cfg.rwkv, h,
+                                       None if cache is None else cache["cm"])
+        elif spec.moe:
+            y, aux = M.apply_moe(params["ffn"], h, cfg.moe)
+        else:
+            y = M.apply_mlp(params["ffn"], h, cfg.act)
+        x = x + y
+    return x, aux
 
 
 def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, ctx: int, dtype,
                       device) -> dict:
+    zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    if spec.kind in ("attn", "shared_attn"):
+        return A.init_gqa_cache(batch, ctx, cfg.attn, window=spec.window, dtype=dtype,
+                                device=device)
     if spec.kind == "mla":
         return A.init_mla_cache(batch, ctx, cfg.attn, dtype=dtype, device=device)
-    return A.init_gqa_cache(batch, ctx, cfg.attn, window=spec.window, dtype=dtype,
-                            device=device)
+    if spec.kind == "rwkv6":
+        r = cfg.rwkv
+        return {"tm": {"shift": zeros(batch, cfg.d_model),
+                       "wkv": zeros(batch, r.n_heads, r.head_dim, r.head_dim,
+                                    dt=torch.float32)},
+                "cm": zeros(batch, cfg.d_model)}
+    if spec.kind == "mamba2":
+        m = cfg.mamba
+        return {"conv": zeros(batch, m.conv_width - 1, m.d_inner + 2 * m.d_state),
+                "ssm": zeros(batch, m.n_heads, m.head_dim, m.d_state, dt=torch.float32)}
+    raise ValueError(spec.kind)
+
+
+def stack_layers(count: int, draw):
+    """``count`` trees from ``draw()`` (a layer, or a period's list of
+    layers with None in a shared slot) stacked leaf by leaf on a leading
+    axis.  Each is written into the stacked leaves as it is drawn (one
+    alone keeps its own tensors), so the transient is one draw, not a
+    second copy of the weights."""
+    stacked = None
+    for c in range(count):
+        layer = draw()
+        if count == 1:
+            return tree.rebuild(layer, lambda _, t: t.unsqueeze(0))
+        if c == 0:
+            stacked = tree.rebuild(layer, lambda _, t: t.new_empty((count, *t.shape)))
+        for path, t in tree.leaves(layer):
+            tree.get(stacked, path)[c].copy_(t)
+    return stacked
 
 
 def _unstack(stacked, count: int) -> list:
@@ -184,19 +238,16 @@ class DecoderLM:
         if len(cfg.pattern) != cfg.n_layers:
             raise ValueError(f"{cfg.name}: pattern has {len(cfg.pattern)} layers, "
                              f"n_layers is {cfg.n_layers}")
-        bad = _unported(cfg)
-        if bad:
-            raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(bad)}")
         self.cfg = cfg
         self.stages = build_stages(cfg.pattern)
         self.device = resolve_device(device)
 
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters in ``cfg.dtype``, drawn from ``generator``
-        (which must live on the model's device).  Each layer is written
-        into its stage's stacked leaves as it is drawn (a stage of one
-        repeat keeps the layer's own tensors), so the transient is one
-        layer and one float32 draw, not a second copy of the weights."""
+        (which must live on the model's device).  Each period is written
+        into its stage's stacked leaves as it is drawn (``stack_layers``),
+        so the transient is one period and one float32 draw, not a second
+        copy of the weights.  A shared block's slots hold None."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
         cfg, dtype = self.cfg, self.cfg.compute_dtype
@@ -208,20 +259,12 @@ class DecoderLM:
         if not cfg.tie_embeddings:
             params["lm_head"] = normal_init((cfg.d_model, cfg.vocab), cfg.d_model ** -0.5,
                                             generator=generator, dtype=dtype)
+        if cfg.shared_block:
+            params["shared"] = _init_layer(cfg, LayerSpec(kind="shared_attn"), generator, dtype)
         for si, stage in enumerate(self.stages):
-            stacked = [None] * len(stage.specs)
-            for c in range(stage.count):
-                for pi, spec in enumerate(stage.specs):
-                    layer = _init_layer(cfg, spec, generator, dtype)
-                    if stage.count == 1:
-                        stacked[pi] = tree.rebuild(layer, lambda _, t: t.unsqueeze(0))
-                        continue
-                    if c == 0:
-                        stacked[pi] = tree.rebuild(
-                            layer, lambda _, t: t.new_empty((stage.count, *t.shape)))
-                    for path, t in tree.leaves(layer):
-                        tree.get(stacked[pi], path)[c].copy_(t)
-            params[f"stage{si}"] = stacked
+            params[f"stage{si}"] = stack_layers(stage.count, lambda stage=stage: [
+                None if spec.kind == "shared_attn" and cfg.shared_block
+                else _init_layer(cfg, spec, generator, dtype) for spec in stage.specs])
         return params
 
     def init_cache(self, batch: int, ctx: int, dtype=torch.bfloat16) -> list:
@@ -251,10 +294,11 @@ class DecoderLM:
 
     def apply(self, params: dict, tokens: torch.Tensor, positions: torch.Tensor,
               cache: list | None = None):
-        """tokens [B, S] (integer), positions [S] -> (logits [B, S, V] in
-        the parameters' dtype, cache, aux loss).  With a cache (from
-        ``init_cache``) the new keys and values are written into it in
-        place and it is returned; without one the cache returned is None."""
+        """tokens [B, S] (integer), positions [S] ([B, 3, S] for M-RoPE)
+        -> (logits [B, S, V] in the parameters' dtype, cache, aux loss).
+        With a cache (from ``init_cache``) the new keys, values and
+        recurrent states are written into it in place and it is returned;
+        without one the cache returned is None."""
         cfg = self.cfg
         x = F.embedding(tokens.to(torch.int64), params["embed"])
         if cfg.emb_scale:  # sqrt(d) rounded to the activations' dtype first, as the reference
@@ -265,7 +309,8 @@ class DecoderLM:
             cslots = (None if cache is None
                       else [_unstack(lc, stage.count) for lc in cache[si]])
             for c in range(stage.count):
-                layer_params = [slot[c] for slot in slots]
+                layer_params = [params["shared"] if slot[c] is None else slot[c]
+                                for slot in slots]
                 if cache is not None:
                     x, a = self._period(stage, layer_params, x, positions,
                                         [slot[c] for slot in cslots])
@@ -276,7 +321,7 @@ class DecoderLM:
                     x, a = self._period(stage, layer_params, x, positions, None)
                 if a is not None:
                     aux = aux + a
-        x = rms_norm(x, params["final_norm"])
+        x = _norm(cfg, x, params["final_norm"])
         if cfg.tie_embeddings:
             logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
         else:
@@ -300,8 +345,13 @@ class DecoderLM:
     def decode_step(self, params: dict, cache: list, token: torch.Tensor, pos):
         """token [B, 1]; pos the absolute position (an int, or an integer
         tensor on the model's device: a 0-d one costs no host sync) ->
-        (logits [B, V], cache)."""
+        (logits [B, V], cache).  Under M-RoPE a 0-d ``pos`` is every
+        stream's position, [B, 3, 1]."""
         pos = torch.as_tensor(pos, device=self.device)
-        logits, cache, _ = self.apply(params, token, pos[None] if pos.ndim == 0 else pos,
-                                      cache=cache)
+        a = self.cfg.attn
+        if a is not None and a.mrope_sections is not None and pos.ndim == 0:
+            positions = pos.to(torch.int32).reshape(1, 1, 1).expand(token.shape[0], 3, 1)
+        else:
+            positions = pos[None] if pos.ndim == 0 else pos
+        logits, cache, _ = self.apply(params, token, positions, cache=cache)
         return logits[:, -1], cache

@@ -1,8 +1,8 @@
 """Feed-forward blocks, port of ``repro/models/mlp.py`` (``:19-131``): the
-dense SwiGLU MLP and the capacity-based MoE (top-k routing with a
-per-expert capacity, the slot in an expert by a cumsum over the dispatch
+dense SwiGLU and GELU MLPs and the capacity-based MoE (top-k routing with
+a per-expert capacity, the slot in an expert by a cumsum over the dispatch
 order, dense [E, C, d] expert products, a combine weighted by the router).
-The GELU MLP is not ported yet (``models/decoder.py`` refuses it)."""
+No configuration pairs MoE with GELU, so the MoE is SwiGLU only."""
 from __future__ import annotations
 
 import functools
@@ -27,19 +27,28 @@ class MoEConfig:
     aux_loss_coef: float = 0.001
 
 
-def init_mlp_params(d_model: int, d_ff: int, *, generator: torch.Generator,
-                    dtype=torch.float32) -> dict:
-    """SwiGLU weights, normal scaled by fan-in (``common.normal_init``)."""
+def init_mlp_params(d_model: int, d_ff: int, act: str, *,
+                    generator: torch.Generator, dtype=torch.float32) -> dict:
+    """MLP weights, normal scaled by fan-in (``common.normal_init``); the
+    SwiGLU gate ``w_gate`` only where ``act`` is "silu"."""
     normal = functools.partial(normal_init, generator=generator, dtype=dtype)
     s_in, s_out = d_model ** -0.5, d_ff ** -0.5
-    return {"w_up": normal((d_model, d_ff), s_in), "w_down": normal((d_ff, d_model), s_out),
-            "w_gate": normal((d_model, d_ff), s_in)}
+    p = {"w_up": normal((d_model, d_ff), s_in), "w_down": normal((d_ff, d_model), s_out)}
+    if act == "silu":
+        p["w_gate"] = normal((d_model, d_ff), s_in)
+    return p
 
 
-def apply_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """silu(x W_gate) * (x W_up) W_down; x [B, S, d]."""
-    h = F.silu(torch.einsum("bsd,df->bsf", x, params["w_gate"]))
-    h = h * torch.einsum("bsd,df->bsf", x, params["w_up"])
+def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """x [B, S, d] -> "silu": silu(x W_gate) * (x W_up) W_down; "gelu":
+    gelu(x W_up) W_down with ``jax.nn.gelu``'s default, the tanh form."""
+    if act == "silu":
+        h = F.silu(torch.einsum("bsd,df->bsf", x, params["w_gate"]))
+        h = h * torch.einsum("bsd,df->bsf", x, params["w_up"])
+    elif act == "gelu":
+        h = F.gelu(torch.einsum("bsd,df->bsf", x, params["w_up"]), approximate="tanh")
+    else:
+        raise ValueError(act)
     return torch.einsum("bsf,fd->bsd", h, params["w_down"])
 
 
@@ -56,7 +65,7 @@ def init_moe_params(d_model: int, cfg: MoEConfig, *, generator: torch.Generator,
          "we_down": normal((E, Fd, d_model), s_out),
          "we_gate": normal((E, d_model, Fd), s_in)}
     if cfg.n_shared:
-        p["shared"] = init_mlp_params(d_model, cfg.shared_d_ff or cfg.d_ff,
+        p["shared"] = init_mlp_params(d_model, cfg.shared_d_ff or cfg.d_ff, "silu",
                                       generator=generator, dtype=dtype)
     return p
 
@@ -115,5 +124,5 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: MoEConfig) -> tuple[torch.Tens
     ytk = torch.where(keep[:, None], ytk, torch.zeros((), dtype=ytk.dtype, device=ytk.device))
     out = (ytk * wflat[:, None]).reshape(T, k, d).sum(1).reshape(B, S, d)
     if "shared" in params:
-        out = out + apply_mlp(params["shared"], x)
+        out = out + apply_mlp(params["shared"], x, "silu")
     return out.to(x.dtype), aux

@@ -877,3 +877,53 @@ def test_lm_train_step_on_the_card_follows_the_cpu(cuda):
             losses[run] = out
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
     assert losses["int8"] == losses["int8_again"]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-1.2b", "qwen2-vl-7b", "whisper-small"])
+def test_lm_family_on_the_card_follows_the_cpu(cuda, arch):
+    """A reduced recurrent, hybrid, M-RoPE or encoder-decoder config in
+    float32 from the CPU's parameters: 12 greedy decode steps' logits and
+    one training loss and its gradients on the card within 1e-4 of the
+    CPU's largest value."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import build_model
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_decode_step
+
+    models = {dev: build_model(arch, reduced=True, device=dev) for dev in ("cpu", cuda)}
+    cfg = dataclasses.replace(models["cpu"][1], dtype="fp32", remat=False)
+    models = {dev: (type(m)(cfg, device=dev), cfg) for dev, (m, _) in models.items()}
+    init = models["cpu"][0].init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab, (2, 4)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab, (2, 17))
+    feats = rng.normal(0, 1, (2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    got = {}
+    for dev, (model, _) in models.items():
+        params = tree.rebuild(init, lambda _, p: p.detach().clone().to(dev))
+        with torch.no_grad():
+            enc_out = (model.encode(params, torch.from_numpy(feats).to(dev))
+                       if cfg.enc_layers else None)
+            gen, logits = generate(make_decode_step(model), params, model.init_cache(
+                2, 16, dtype=torch.float32), torch.from_numpy(prompt).to(dev), 9, enc_out)
+        leaves = [p.requires_grad_(True) for _, p in tree.leaves(params)]
+        t = torch.from_numpy(toks).to(dev)
+        if cfg.enc_layers:
+            loss, _ = model.loss(params, torch.from_numpy(feats).to(dev), t[:, :-1], t[:, 1:])
+        else:
+            pos = torch.arange(16, device=dev)
+            if cfg.attn is not None and cfg.attn.mrope_sections is not None:
+                pos = pos[None, None].expand(2, 3, 16)
+            loss, _ = model.loss(params, t[:, :-1], t[:, 1:], pos)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        got[str(dev)] = (gen.cpu(), logits.cpu(), float(loss.detach()),
+                         [None if g is None else g.cpu() for g in grads])
+    (gen_a, lg_a, loss_a, g_a), (gen_b, lg_b, loss_b, g_b) = got.values()
+    assert float((lg_b - lg_a).abs().max()) <= 1e-4 * float(lg_a.abs().max())
+    assert abs(loss_b - loss_a) <= 1e-4 * abs(loss_a)
+    for a, b in zip(g_a, g_b):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert float((b - a).abs().max()) <= 1e-4 * (float(a.abs().max()) + 1e-30)

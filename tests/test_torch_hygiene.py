@@ -49,6 +49,8 @@ def test_port_imports_without_jax_in_a_fresh_interpreter():
             "import repro_torch.checkpoint, repro_torch.runtime\n"
             "import repro_torch.launch.train, repro_torch.launch.gwlz_dist\n"
             "import repro_torch.configs.gwlz_nyx, repro_torch.optim.grad_compress\n"
+            "import repro_torch.models.ssm, repro_torch.models.encdec\n"
+            "import repro_torch.launch.serve\n"
             "from repro_torch.configs import ARCH_IDS, get_config\n"
             "[get_config(a) for a in ARCH_IDS]\n"
             "print('ok')")

@@ -49,13 +49,14 @@ from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
 from repro_torch.models import attention as PAttn
 from repro_torch.models import decoder as PD
 from repro_torch.models import mlp as PMlp
+from repro_torch.models import ssm as PSsm
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim import adamw as PA
 from repro_torch.optim.schedule import warmup_cosine
 
 CPU = "cpu"
 DENSE = ("granite-3-8b", "yi-9b", "gemma3-1b", "llama3-405b", "deepseek-v3-671b",
-         "llama4-scout-17b-a16e")  # the ported arch ids
+         "llama4-scout-17b-a16e")  # the attention families (the others: test_torch_lm_families.py)
 
 
 def _as(cls, obj):
@@ -64,15 +65,16 @@ def _as(cls, obj):
 
 
 def _port_config(rcfg):
-    """A reference ``ModelConfig`` field for field as the port's (the
-    mechanisms the port lacks passed through as they are)."""
+    """A reference ``ModelConfig`` field for field as the port's."""
     fields = {f.name: getattr(rcfg, f.name) for f in dataclasses.fields(rcfg)}
     a = rcfg.attn
     if a is not None:
         fields["attn"] = dataclasses.replace(
             _as(PAttn.AttnConfig, a), mla=None if a.mla is None else _as(PAttn.MLAConfig, a.mla))
-    if rcfg.moe is not None:
-        fields["moe"] = _as(PMlp.MoEConfig, rcfg.moe)
+    for name, cls in (("moe", PMlp.MoEConfig), ("rwkv", PSsm.RWKV6Config),
+                      ("mamba", PSsm.Mamba2Config)):
+        if fields[name] is not None:
+            fields[name] = _as(cls, fields[name])
     fields["pattern"] = tuple(PD.LayerSpec(**dataclasses.asdict(s)) for s in rcfg.pattern)
     return PD.ModelConfig(**fields)
 
@@ -90,18 +92,20 @@ def test_build_stages_agrees_on_every_reference_pattern(arch):
 
 @pytest.mark.parametrize("arch", RC.ARCH_IDS)
 def test_registry_builds_the_dense_family_and_refuses_the_rest(arch):
-    """Six archs build (the attention families), four are refused."""
+    """All ten archs build, in the reference's order, with its configs
+    (full and reduced) and families: the decoders as ``DecoderLM``, whisper
+    as ``EncDecLM``.  (The name is kept from when four were refused.)"""
+    from repro_torch.models.encdec import EncDecLM
+
+    assert PC.ARCH_IDS == RC.ARCH_IDS
     pcfg = _port_config(RC.get_config(arch, reduced=True))
-    assert PC.ARCH_IDS == tuple(a for a in RC.ARCH_IDS if a in DENSE)
-    if arch in DENSE:
-        assert arch in PC.ARCH_IDS and PC.get_config(arch, reduced=True) == pcfg
-        assert PC.get_config(arch) == _port_config(RC.get_config(arch))
-        assert PC.get_family(arch) == RC.get_family(arch) == "decoder"
-        PD.DecoderLM(pcfg, device=CPU)
-    else:
-        assert arch not in PC.ARCH_IDS
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            PD.DecoderLM(pcfg, device=CPU)
+    assert PC.get_config(arch, reduced=True) == pcfg
+    assert PC.get_config(arch) == _port_config(RC.get_config(arch))
+    family = RC.get_family(arch)
+    assert PC.get_family(arch) == family == ("encdec" if arch == "whisper-small" else "decoder")
+    model, cfg = PC.build_model(arch, reduced=True, device=CPU)
+    assert cfg == pcfg
+    assert isinstance(model, EncDecLM if family == "encdec" else PD.DecoderLM)
 
 
 def _paths(ref_tree) -> list[str]:
