@@ -101,12 +101,12 @@ Phases (any failure raises and the script exits non-zero):
               tile-read seconds, geometry, tracked and device peaks (the
               eager main's beside them), and one batch's pageable upload;
 10. gwlz_mono -- the paper's configuration: api.compress(predictor="lorenzo",
-              enhance=GWLZTrainConfig(epochs=5)) on the same field, the
+              enhance=GWLZTrainConfig(epochs=3)) on the same field, the
               enhancers trained on 512 full 512x512 slices (51 steps an
-              epoch; 5 epochs, cut from 300), then save, open, full decode
+              epoch; 3 epochs, cut from 300), then save, open, full decode
               and the ROI.  Checks as for gwlz;
 11. gwlz_interp -- the same on the default predictor (interp): the paper's
-              GWLZ over its SZ3-class baseline (5 epochs, cut from 300);
+              GWLZ over its SZ3-class baseline (3 epochs, cut from 300);
 12. bigstream -- one SZJX Lorenzo field whose single Huffman stream is past
               2**31 bits (integer noise on [0, 2**16) at 512^3, abs_eb 0.5,
               ``huffman`` backend): api.compress -> save -> open -> full
@@ -197,9 +197,9 @@ Phases (any failure raises and the script exits non-zero):
               tokens/s, KV-cache bytes and the device peak: (a) gemma3-1b
               at full width and depth (26 layers, d 1152, 4 heads, kv 1,
               head_dim 256, vocab 262144, 5:1 sliding(512):global) through
-              ``launch.serve.main`` in bf16, batch 8, ctx 2048, prompt 1024,
-              256 generated (the 512-slot rings wrap twice, the global
-              caches fill 1,279 of 2,048), then one steady step under
+              ``launch.serve.main`` in bf16, batch 8, ctx 2048, prompt 512,
+              128 generated (the 512-slot rings wrap once, the global
+              caches fill 639 of 2,048), then one steady step under
               torch.profiler (device operations a step, device busy share)
               and the weight-plus-cache bytes a step reads over the step
               time as a share of 3.35 TB/s; (b) gemma3-1b at full
@@ -245,6 +245,31 @@ Phases (any failure raises and the script exits non-zero):
               at 12) for whisper-small, qwen2-vl-7b and zamba2-1.2b as
               subprocesses, all at once: exit 0, one restart, the loss
               falls.  No kernel of ``csrc/`` may be launched;
+12i. dryrun -- LM sharding, microbatching and the dry run in four
+              checks: (a) granite-3-8b at full width, 4 of its 40 layers,
+              global batch 8 x seq 2048, bf16 moments, under deterministic
+              algorithms: DRY_STEPS steps with microbatch M = 1 and as many
+              with M = 4 from one seeded init; the step-1 losses within
+              rtol 2e-3, the parameters after one step within 2 bfloat16
+              ulps of max|p| plus 2 lr, the device peak lower at M = 4;
+              ms a step, tokens/s, share of the bf16 dense peak (6 N tokens
+              over the step) and peak for each M; (b) a one-rank NCCL
+              group and ``make_host_mesh()``: the reduced granite in
+              float32 as DTensors placed by ``named(mesh, param_pspecs(...))``,
+              one microbatched step (M = 2) equal to the plain-tensor step
+              within 1e-5 of each leaf's largest value, and
+              ``reshard_restore`` onto the mesh: DTensor leaves with the
+              specs' placements, bit-equal to what was saved; (c) the dry
+              run's trace of (a)'s cell on that (1, 1) mesh: counted FLOPs
+              against 6 N D, the roofline's three terms (H100 datasheet
+              peaks) and (a)'s measured M = 1 step over the dominant term;
+              (d) ``python -m repro_torch.launch.dryrun --mesh single`` for
+              gwlz-nyx vol512_g32 and granite-3-8b train_4k and decode_32k
+              at full size on the 32 x 8 mesh (fake process group), three
+              subprocesses at once, then ``python -m
+              repro_torch.launch.roofline`` over their cells: exit 0, no
+              error row, the table printed.  No kernel of ``csrc/`` is
+              launched (gwlz-nyx's ``group_hist`` runs its shape rule);
 13. cli     -- ``python -m repro_torch.cli`` in subprocesses on
               synthetic:temperature:64, tiled (tile 16) and monolithic,
               Lorenzo: compress -> info -> region -> decompress -> verify;
@@ -301,7 +326,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 / int32 rate
 SHAPE, TILE, REL_EB, BACKEND = (512, 512, 512), (64, 64, 64), 1e-3, "huffman+zlib"
 GWLZ_EPOCHS = 1  # the paper trains 300 epochs (~1M steps at 512^3): no smoke
-MONO_EPOCHS = 5  # gwlz_mono: 51 steps an epoch on 512 slices of 512x512
+MONO_EPOCHS = 3  # gwlz_mono: 51 steps an epoch on 512 slices of 512x512
 GWLZ_FIELDS = {"gwlz": "temperature", "gwlz_all_groups": "velocity_x"}  # phase -> field
 ROI = ((100, 228), (37, 101), (300, 364))
 BIG_EB = 0.5  # bigstream: integer noise on [0, 2**16), ~17.7 bits a value, > 2**31 bits
@@ -360,7 +385,9 @@ LM_STEPS, LM_EVERY, LM_FAIL, LM_LR, LM_TIMED = 20, 10, 13, 3e-4, 5
 LM_MOMENTS = "bf16"
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16
 # lm_serve (a): gemma3-1b at full depth through the serving driver
-SERVE_ARCH, SERVE_BATCH, SERVE_CTX, SERVE_PROMPT, SERVE_GEN = "gemma3-1b", 8, 2048, 1024, 256
+# prompt 512 and 128 generated (cut from 1,024 and 256 to make room for the
+# dryrun phase); 639 steps still wrap the 512-slot rings
+SERVE_ARCH, SERVE_BATCH, SERVE_CTX, SERVE_PROMPT, SERVE_GEN = "gemma3-1b", 8, 2048, 512, 128
 # (b): 1,024 positions are two 512-query blocks, so the sliding layers'
 # prefill is banded (640 would be one block, unbanded); one 5:1 period of
 # layers keeps the 1,024 sequential decode steps inside the time limit
@@ -381,6 +408,10 @@ FAM_PREFILL_LAYERS = {"rwkv6-7b": 2, "zamba2-1.2b": 6, "qwen2-vl-7b": 2, "whispe
 FAM_CPU_STEPS = 12  # (f)
 FAM_TRAIN = ("whisper-small", "qwen2-vl-7b", "zamba2-1.2b")  # (g): the trained drivers
 PROFILED = 4  # (a): decode steps in the torch.profiler window, a step reported
+# dryrun (a): granite at lm_train's cut, the global batch 8 x 2048 (M = 1, 4)
+DRY_BATCH, DRY_MICRO, DRY_STEPS = 8, (1, 4), 3
+DRY_CELLS = (("gwlz-nyx", "vol512_g32"), ("granite-3-8b", "train_4k"),
+             ("granite-3-8b", "decode_32k"))  # (d): full size on the 32 x 8 mesh
 LOOP_STEPS, LOOP_EVERY, LOOP_FAILS = 40, 10, (17, 31)  # checkpoint (b): the reference test's
 ENHANCE_RTOL = 1e-5  # |kernel - plain| <= ENHANCE_RTOL * (1 + max|plain|)
 # a parent commit's tree, unpacked with git archive: its Lorenzo kernels are
@@ -2630,6 +2661,174 @@ def lm_families_path(tmp: Path) -> None:
           "phase_seconds": time.perf_counter() - t_phase})
 
 
+def dryrun_path(tmp: Path) -> None:
+    """LM sharding, microbatching and the dry run on the card (module
+    docstring, phase 12i): four checks, each emitting its JSON line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.launch.steps import TrainOptions, make_train_step
+    from repro_torch.launch.train import deterministic, prng_key
+    from repro_torch.models.decoder import DecoderLM, default_pattern
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import reshard_restore
+
+    dev = torch.device("cuda")
+    ops.reset_launches()
+    # (d) first, in the background: three CPU-bound subprocesses, no card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = tmp / "dryrun"
+    t_d = time.perf_counter()
+    procs = {f"{arch}:{shape}": subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--mesh", "single", "--out", str(out)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for arch, shape in DRY_CELLS}
+
+    # (a) microbatching at full width
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS,
+                              pattern=default_pattern(LM_LAYERS, rope_theta=1e4))
+    model = DecoderLM(cfg, device=dev)
+    pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab, DRY_BATCH, LM_SEQ, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(i).items()}
+               for i in range(DRY_STEPS)]
+    tokens = DRY_BATCH * LM_SEQ
+    runs, after_one = {}, {}
+    with deterministic(dev):
+        for M in DRY_MICRO:
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            n_params = sum(p.numel() for _, p in tree.leaves(params))
+            step, adam_cfg = make_train_step(model, cfg, TrainOptions(
+                lr=LM_LR, warmup=1, total_steps=100, moment_dtype="bf16", microbatch=M))
+            opt = adamw.init(params, adam_cfg)
+            base = fresh_peak()
+            times, losses = [], []
+            for i, batch in enumerate(batches):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, opt, m = step(params, opt, batch, prng_key(i))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                losses.append(float(m["loss"]))
+                if i == 0:
+                    after_one[M] = {path: p.detach().float().cpu()
+                                    for path, p in tree.leaves(params)}
+                    lr1 = m["lr"]
+            ms = float(np.median(times[1:])) * 1e3
+            runs[M] = {"ms_per_step": ms, "first_step_ms": times[0] * 1e3, "losses": losses,
+                       "tokens_per_s": tokens / ms * 1e3,
+                       "bf16_dense_peak_share": 6 * n_params * tokens / (ms / 1e3)
+                       / BF16_OPS_PER_S,
+                       "device_peak_bytes": torch.cuda.max_memory_allocated() - base}
+            del params, opt, step
+    m1, m4 = DRY_MICRO
+    check(all(np.isfinite(r["losses"]).all() for r in runs.values()),
+          f"dryrun (a): losses {[r['losses'] for r in runs.values()]}")
+    loss_rel = abs(runs[m4]["losses"][0] - runs[m1]["losses"][0]) / abs(runs[m1]["losses"][0])
+    check(loss_rel <= 2e-3, f"dryrun (a): step-1 loss M={m4} vs M={m1}: rel {loss_rel}")
+    pmax = max(float(p.abs().max()) for p in after_one[m1].values())
+    pdiff = max(float((after_one[m4][k] - after_one[m1][k]).abs().max()) for k in after_one[m1])
+    ptol = 2.0 ** -7 * pmax + 2 * lr1  # two bfloat16 ulps of max|p|, or an update's sign
+    check(pdiff <= ptol, f"dryrun (a): parameters after one step differ by {pdiff} > {ptol}")
+    check(runs[m4]["device_peak_bytes"] < runs[m1]["device_peak_bytes"],
+          f"dryrun (a): peak at M={m4} not below M={m1}: "
+          f"{runs[m4]['device_peak_bytes']} vs {runs[m1]['device_peak_bytes']}")
+    emit({"phase": "dryrun", "check": "a", "arch": LM_ARCH, "layers": f"{LM_LAYERS} of 40",
+          "params": n_params, "batch": DRY_BATCH, "seq": LM_SEQ, "moments": "bf16",
+          "steps": DRY_STEPS, "runs": runs, "loss_rel_diff": loss_rel,
+          "param_max_diff": pdiff, "param_tol": ptol, "max_abs_param": pmax})
+    del after_one
+
+    # (b) the sharded path on a one-rank NCCL group
+    rcfg = dataclasses.replace(get_config(LM_ARCH, reduced=True), dtype="fp32")
+    rmodel = DecoderLM(rcfg, device=dev)
+    init = rmodel.init(torch.Generator(device=dev).manual_seed(3))
+    rpipe = TokenPipeline(TokenPipelineConfig(rcfg.vocab, 4, 16, seed=1))
+    rbatch = {k: torch.from_numpy(v).to(dev) for k, v in rpipe.batch_at(0).items()}
+    opts = TrainOptions(lr=1e-3, warmup=1, total_steps=10, moment_dtype="fp32", microbatch=2)
+    mesh = make_host_mesh()
+    try:
+        specs = SH.param_pspecs(init, SH.ShardingOptions(fsdp=True), mesh)
+        plain = tree.rebuild(init, lambda _, t: t.detach().clone())
+        step, adam_cfg = make_train_step(rmodel, rcfg, opts)
+        plain_opt = adamw.init(plain, adam_cfg)
+        plain, _, pm = step(plain, plain_opt, rbatch, prng_key(0))
+        placed = SH.distribute(tree.rebuild(init, lambda _, t: t.detach().clone()), mesh, specs)
+        dstep, _ = make_train_step(rmodel, rcfg, opts, mesh=mesh)
+        popt = adamw.init(placed, adam_cfg)  # the moments take their parameters' placements
+        placed, _, dm = dstep(placed, popt, SH.distribute(rbatch, mesh, {
+            k: SH.batch_pspec(mesh) for k in rbatch}), prng_key(0))
+        with torch.no_grad():
+            worst = max(float((d.full_tensor() - p).abs().max() / p.abs().max().clamp(min=1e-30))
+                        for (_, d), (_, p) in zip(tree.leaves(placed), tree.leaves(plain)))
+        loss_diff = abs(float(dm["loss"].full_tensor()) - float(pm["loss"]))
+        check(worst <= 1e-5 and loss_diff <= 1e-5 * abs(float(pm["loss"])),
+              f"dryrun (b): sharded step vs plain: {worst} of the largest, loss {loss_diff}")
+        mgr = CheckpointManager(str(tmp / "dry_ckpt"), async_save=False)
+        mgr.save(1, init)
+        target = tree.rebuild(init, lambda _, t: torch.zeros_like(t))
+        back = reshard_restore(mgr, target, mesh, opts=SH.ShardingOptions(fsdp=True))
+        named = SH.named(mesh, specs)
+        for (path, b), (_, want) in zip(tree.leaves(back), tree.leaves(init)):
+            check(b.placements == tree.get(named, path) and torch.equal(b.full_tensor(), want),
+                  f"dryrun (b): reshard_restore at {path}")
+        emit({"phase": "dryrun", "check": "b", "mesh": mesh_str(mesh), "microbatch": 2,
+              "leaves": len(list(tree.leaves(init))), "max_rel_diff": worst,
+              "loss_diff": loss_diff, "restored_bit_equal": True})
+
+        # (c) the roofline of (a)'s own cell against its measured step
+        info = dryrun.trace_cell(LM_ARCH, "train_4k", False, mesh=mesh, cfg=cfg,
+                                 cell=ShapeCell("train_2k_b8", LM_SEQ, DRY_BATCH, "train"),
+                                 overrides={"microbatch": 1, "fsdp": False,
+                                            "moment_dtype": "bf16"})
+    finally:
+        dist.destroy_process_group()
+    row = roofline.analyse(info)
+    terms = {k: row[f"t_{k}_s"] * 1e3 for k in ("compute", "memory", "collective")}
+    measured = runs[m1]["ms_per_step"]
+    emit({"phase": "dryrun", "check": "c", "counted_flops": info["walked"]["flops"],
+          "model_flops_6nd": row["model_flops"], "counted_over_6nd": 1 / row["useful_fraction"],
+          "terms_ms": terms, "dominant": row["dominant"],
+          "measured_ms_m1": measured, "measured_over_dominant": measured / terms[row["dominant"]],
+          "trace_s": info["trace_s"], "static_bytes": info["static_bytes_per_dev"]})
+
+    # (d) the production dry run's three cells, then the roofline table
+    said = {}
+    for name, p in procs.items():
+        so, se = p.communicate(timeout=900)
+        said[name] = so.strip().splitlines()[-2:]
+        check(p.returncode == 0, f"dryrun (d): {name} exited {p.returncode}: {so[-800:]} "
+                                 f"{se[-1500:]}")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline", "--dir", str(out),
+                        "--mesh", "all", "--json-out", str(out / "roofline.json")], env=env,
+                       capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0 and "ERROR" not in r.stdout,
+          f"dryrun (d): roofline exited {r.returncode}: {r.stdout[-1500:]} {r.stderr[-1500:]}")
+    rows = json.loads((out / "roofline.json").read_text())
+    check(len(rows) == len(DRY_CELLS), f"dryrun (d): {len(rows)} rows of {len(DRY_CELLS)}")
+    print(r.stdout, flush=True)
+    launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()), f"dryrun: a codec kernel launched: {launches}")
+    emit({"phase": "dryrun", "check": "d", "seconds": time.perf_counter() - t_d,
+          "cells": said, "rows": [{k: v for k, v in row.items() if k != "settings"}
+                                  for row in rows], "launches": launches})
+
+
+def mesh_str(mesh) -> str:
+    return "x".join(str(s) for s in mesh.mesh.shape) + f" {mesh.device_type}"
+
+
 def legacy_inputs(blob: bytes, dev):
     """The boundary pass's inputs for a legacy hf/hz blob: (args, kw, total
     bits); the kernel and its plain version take the same ones."""
@@ -3401,6 +3600,7 @@ def main() -> int:
         lm_launches = lm_train_path(Path(tmp))
         lm_serve_path()
         lm_families_path(Path(tmp))
+        dryrun_path(Path(tmp))
         cli_path(Path(tmp))
     path_launches = {"main": launches, "gwlz": gw["gwlz"][2], "szjx": sz_launches,
                      "interp": interp_launches, "interp_tiled": interp_tiled_launches,

@@ -195,11 +195,17 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, target_tree, step: int | None = None, *, device=None):
+    def restore(self, target_tree, step: int | None = None, *, device=None, mesh=None,
+                placements=None):
         """Restore into the structure of ``target_tree``: each leaf takes its
         target's dtype and its target's device (or ``device``, when given);
         shapes are checked against the manifest and the target.  Leaves
-        that are not tensors restore as CPU tensors of their numpy dtype."""
+        that are not tensors restore as CPU tensors of their numpy dtype.
+        With ``mesh`` (a ``DeviceMesh``) and ``placements`` (a tree of
+        DTensor placement tuples matching the target), each leaf is
+        restored whole onto the mesh's device type and placed as a DTensor
+        (every rank reads the whole leaf and keeps its shard: the
+        reference's ``shardings``)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -225,5 +231,17 @@ class CheckpointManager:
                     raise ValueError(f"checkpoint leaf {key!r}: stored shape "
                                      f"{tuple(t.shape)}, manifest {want}, target "
                                      f"{tuple(target.shape)}")
-                values[key] = t.to(device=dev, dtype=target.dtype)
+                if mesh is None:
+                    values[key] = t.to(device=dev, dtype=target.dtype)
+                else:
+                    values[key] = self._place(t.to(dtype=target.dtype), mesh,
+                                              tree_util.get(placements, tuple(key.split(_SEP))))
         return _rebuild(target_tree, values)
+
+    @staticmethod
+    def _place(t: torch.Tensor, mesh, placements):
+        from torch.distributed.tensor import distribute_tensor
+
+        dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+            if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+        return distribute_tensor(t.to(dev), mesh, placements, src_data_rank=None)

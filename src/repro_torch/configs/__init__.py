@@ -30,6 +30,12 @@ def get_family(arch_id: str) -> str:
     return arch_module(arch_id).FAMILY
 
 
+def long_context_ok(arch_id: str) -> bool:
+    """Whether the arch runs the 500k-token context cell (sub-quadratic
+    attention or a recurrent state)."""
+    return arch_module(arch_id).LONG_CONTEXT_OK
+
+
 def build_model(arch_id: str, reduced: bool = False, *, device=None):
     """Returns (model, cfg) for the arch, on ``device`` (None: the CUDA
     device, which must exist): a ``DecoderLM`` or an ``EncDecLM`` by the

@@ -5,6 +5,7 @@ MTP head available behind a config flag (off in dry-run shapes).
 from repro_torch.configs.base import AttnConfig, LayerSpec, MLAConfig, ModelConfig, MoEConfig
 
 FAMILY = "decoder"
+LONG_CONTEXT_OK = False  # MLA is still dense softmax over all positions
 
 
 def _pattern(n_layers: int, first_dense: int) -> tuple:

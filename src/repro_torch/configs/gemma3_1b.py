@@ -6,6 +6,8 @@ from repro_torch.configs.base import (
 )
 
 FAMILY = "decoder"
+LONG_CONTEXT_OK = True  # sliding-window dominant; sparse global layers are
+                        # sequence-sharded at long context
 
 _WINDOW = 512
 

@@ -3,6 +3,7 @@
 from repro_torch.configs.base import AttnConfig, ModelConfig, default_pattern
 
 FAMILY = "decoder"
+LONG_CONTEXT_OK = False  # pure full attention -> skip long_500k
 
 
 def get_config(reduced: bool = False) -> ModelConfig:

@@ -7,6 +7,7 @@ to a multiple of its model axis), a global batch of 512 slices.
 from repro_torch.launch.gwlz_dist import DistGWLZConfig
 
 FAMILY = "gwlz"
+LONG_CONTEXT_OK = False
 
 
 def get_config(reduced: bool = False) -> DistGWLZConfig:

@@ -7,6 +7,7 @@ from repro_torch.configs.base import (
 )
 
 FAMILY = "decoder"
+LONG_CONTEXT_OK = True  # chunked-local dominant; sparse NoPE-global layers
 
 
 def _pattern(n_layers: int, chunk: int) -> tuple:

@@ -5,6 +5,7 @@ carries the 3-stream positions; patch embeddings enter as ordinary tokens.
 from repro_torch.configs.base import AttnConfig, ModelConfig, default_pattern
 
 FAMILY = "decoder"
+LONG_CONTEXT_OK = False
 MROPE = (16, 24, 24)
 
 

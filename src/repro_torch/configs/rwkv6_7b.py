@@ -3,6 +3,7 @@ vocab 65536, head 64, data-dependent decay (Finch). [arXiv:2404.05892]"""
 from repro_torch.configs.base import LayerSpec, ModelConfig, RWKV6Config
 
 FAMILY = "decoder"
+LONG_CONTEXT_OK = True  # O(1) recurrent state
 
 
 def get_config(reduced: bool = False) -> ModelConfig:

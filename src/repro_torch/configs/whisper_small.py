@@ -4,6 +4,7 @@ precomputed frame embeddings [B, 1500, 768]. [arXiv:2212.04356]"""
 from repro_torch.configs.base import AttnConfig, ModelConfig, default_pattern
 
 FAMILY = "encdec"
+LONG_CONTEXT_OK = False
 ENC_SEQ = 1500
 
 

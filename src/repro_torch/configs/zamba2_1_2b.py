@@ -4,6 +4,7 @@ weights (the per-invocation LoRA is omitted, as in the reference). [arXiv:2411.1
 from repro_torch.configs.base import AttnConfig, LayerSpec, Mamba2Config, ModelConfig
 
 FAMILY = "decoder"
+LONG_CONTEXT_OK = True  # Mamba2 state + sequence-sharded shared-attn KV
 
 
 def _pattern(n_layers: int, every: int) -> tuple:

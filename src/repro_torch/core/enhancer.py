@@ -90,21 +90,24 @@ def hidden(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply(params: dict, state: dict, x: torch.Tensor, *, train: bool,
-          mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+          mask: torch.Tensor | None = None, sync=None) -> tuple[torch.Tensor, dict]:
     """Forward pass of all G models.
 
     ``x``: [G, B, H, W] normalised single-channel slices, one stack per
     group (zeros outside the group).  Returns ([G, B, H, W] predicted
     normalised residual, new BN state).  In train mode BN uses batch
-    statistics over in-group pixels only (``mask`` [G, B, H, W])."""
+    statistics over in-group pixels only (``mask`` [G, B, H, W]);
+    ``sync`` (a device's slice of a batch split over devices) sums each
+    per-group statistic over the devices, as synchronized BN does."""
     G, B, H, W = x.shape
     h = hidden(params, x)  # [B, G, C, H, W]
     if train:
         if mask is not None:
+            total = (lambda t: t) if sync is None else sync
             m = mask.to(h.dtype).transpose(0, 1).unsqueeze(2)  # [B, G, 1, H, W]
-            cnt = torch.clamp(m.sum(dim=(0, 3, 4)), min=1.0)
-            mean = (h * m).sum(dim=(0, 3, 4)) / cnt
-            var = ((h - mean[None, :, :, None, None]) ** 2 * m).sum(dim=(0, 3, 4)) / cnt
+            cnt = torch.clamp(total(m.sum(dim=(0, 3, 4))), min=1.0)
+            mean = total((h * m).sum(dim=(0, 3, 4))) / cnt
+            var = total(((h - mean[None, :, :, None, None]) ** 2 * m).sum(dim=(0, 3, 4))) / cnt
         else:
             mean = h.mean(dim=(0, 3, 4))
             var = h.var(dim=(0, 3, 4), unbiased=False)

@@ -121,13 +121,28 @@ def huffman_legacy_bounds_op(words, cw_map, len_sorted, *, n_symbols: int,
     return ref.huffman_legacy_bounds_ref(*args, **kw)
 
 
-def group_hist_op(x: torch.Tensor, edges: torch.Tensor):
-    """float32 values (any shape, any size) and edges [G+1] -> (ids int32 of
-    ``x``'s shape, hist int32 [G]): ids = clip(#{j < G : edges[j] <= x} - 1,
-    0, G-1), the reference's ``group_hist`` without its 128-lane padding."""
+@torch.library.custom_op("repro_torch::group_hist", mutates_args=())
+def _group_hist(x: torch.Tensor, edges: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if _on_cuda(x):
         return group_hist(x, edges)
     return ref.group_hist_ref(x, edges)
+
+
+@_group_hist.register_fake
+def _group_hist_shapes(x: torch.Tensor, edges: torch.Tensor):
+    return (torch.empty(x.shape, dtype=torch.int32, device=x.device),
+            torch.empty(edges.shape[0] - 1, dtype=torch.int32, device=x.device))
+
+
+def group_hist_op(x: torch.Tensor, edges: torch.Tensor):
+    """float32 values (any shape, any size) and edges [G+1] -> (ids int32 of
+    ``x``'s shape, hist int32 [G]): ids = clip(#{j < G : edges[j] <= x} - 1,
+    0, G-1), the reference's ``group_hist`` without its 128-lane padding.
+    A custom op (``repro_torch::group_hist``), so that a shape-only trace
+    (fake or meta tensors: the dry run) gets the outputs' shapes from its
+    shape rule and runs neither the kernel nor the plain version, and a
+    DTensor gets its sharding rule (``launch/sharding.py``)."""
+    return torch.ops.repro_torch.group_hist(x, edges)
 
 
 def enhancer_grouped_op(x: torch.Tensor, ids: torch.Tensor | None, packed: torch.Tensor, *,

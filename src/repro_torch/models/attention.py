@@ -24,6 +24,8 @@ from typing import Optional
 import torch
 
 from repro_torch.models.common import apply_mrope, apply_rope, normal_init, rms_norm
+from repro_torch.models.spmd import (ContiguousGrad, all_reduce_over, einsum, local_block,
+                                     settled, whole)
 
 MASK_CAUSAL, MASK_SLIDING, MASK_CHUNKED, MASK_BIDIR = 0, 1, 2, 3
 _UNWRITTEN = 1 << 30  # the position of a ring slot not written yet: in the future
@@ -129,6 +131,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_positions: torch
     ``window + block`` keys it can see, O(S·w) instead of O(S²); it applies
     where the reference's does: more than one block, ``window > 0`` and a
     multiple of the block."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return _attend_sharded(q, k, v, q_positions, k_positions, mask_mode=mask_mode,
+                               window=window, q_block=q_block, softcap=softcap, banded=banded)
     B, Lq, H, D = q.shape
     Lk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // K  # query heads per kv head
@@ -156,22 +163,116 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_positions: torch
                 start = torch.clamp((q0 // window) * window, 0, Lk - kw)
             kpos_b = start + torch.arange(kw, device=k.device)
             kb, vb = kf.index_select(1, kpos_b), vf.index_select(1, kpos_b)
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg[:, i:i + bq].to(torch.float32), kb) * scale
+        s = einsum("bqkgd,bskd->bkgqs", qg[:, i:i + bq].to(torch.float32), kb) * scale
         s = _softcap(s, softcap)
         s = _mask_logits(s, qpos_b, kpos_b, mask_mode, window)
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, vb))
+        outs.append(einsum("bkgqs,bskd->bqkgd", p, vb))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.reshape(B, Lq, H, Dv).to(q.dtype)
+
+
+def _attend_sharded(q, k, v, q_positions, k_positions, **kw):
+    """:func:`attend` of DTensors, on this rank's shards: attention is
+    independent per batch row and head, so a rank computes its rows and
+    heads alone (the reference's SPMD program does the same).  Where k and v
+    are sharded on the sequence (a flash-decode cache), the ranks that
+    share a query combine their partial softmaxes (:func:`_attend_seq_sharded`).
+    k and v follow q's batch rows; with q's heads sharded and the kv heads
+    whole, a rank takes the kv heads its query heads read (grouped query
+    attention: head h reads kv head h // G)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    if not isinstance(k, DTensor):
+        k, v = (DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                for t in (k, v))
+    q, k, v = settled(q), settled(k), settled(v)
+    qpos, kpos = whole(q_positions), whole(k_positions)
+    if any(p in (Shard(1), Shard(3)) for p in q.placements):
+        raise ValueError(f"attention over queries sharded on sequence or depth: {q.placements}")
+    if Shard(1) in k.placements:
+        return _attend_seq_sharded(q, k, v, qpos, kpos, **kw)
+    # k, v: q's batch rows (a local slice of whole rows), heads sharded
+    # where q's are too, whole elsewhere
+    want = [Shard(0) if qp == Shard(0) else Shard(2) if qp == kp == Shard(2) else Replicate()
+            for qp, kp in zip(q.placements, k.placements)]
+    k, v = (t.redistribute(mesh, want) for t in (k, v))
+    H, K = q.shape[2], k.shape[2]
+    G = H // K
+    h0, hl = local_block(q, 2)
+    slice_heads = [qp == Shard(2) and kp != Shard(2) for qp, kp in zip(q.placements, want)]
+    grad_kv = [Partial() if sl else p for sl, p in zip(slice_heads, want)]
+    kl, vl = (ContiguousGrad.apply(t.to_local(grad_placements=grad_kv)) for t in (k, v))
+    if any(slice_heads):
+        lo, hi = h0 // G, (h0 + hl - 1) // G + 1
+        kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+    out = attend(ContiguousGrad.apply(q.to_local()), kl, vl, qpos, kpos, **kw)
+    B, Lq = q.shape[0], q.shape[1]
+    return DTensor.from_local(out, mesh, q.placements, run_check=False,
+                              shape=torch.Size((B, Lq, H, v.shape[3])),
+                              stride=(Lq * H * v.shape[3], H * v.shape[3], v.shape[3], 1))
+
+
+def _attend_seq_sharded(q, k, v, qpos, kpos, *, mask_mode, window, softcap, **_):
+    """Attention over keys sharded on the sequence (flash decode): each rank
+    scores its slots for every head, the ranks along the sequence's mesh
+    dims combine the softmax's max, sum and weighted values (three
+    all-reduces), and each keeps its query's heads."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, q_placements = q.device_mesh, q.placements
+    seq_dims = [i for i, p in enumerate(k.placements) if p == Shard(1)]
+    # the query's heads whole (a decode step's query is small); its batch rows stay
+    q_want = [Replicate() if i in seq_dims or p == Shard(2) else p
+              for i, p in enumerate(q_placements)]
+    q = q.redistribute(mesh, q_want)
+    kv_want = [Shard(1) if i in seq_dims else Shard(0) if qp == Shard(0) else Replicate()
+               for i, qp in enumerate(q_want)]
+    k, v = (t.redistribute(mesh, kv_want) for t in (k, v))
+    off, cl = local_block(k, 1)
+    kpos = kpos[off:off + cl]
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    B, Lq, H, D = ql.shape
+    K, Dv = kl.shape[2], vl.shape[3]
+    qg = ql.reshape(B, Lq, K, H // K, D).to(torch.float32)
+    s = einsum("bqkgd,bskd->bkgqs", qg, kl.to(torch.float32)) * D ** -0.5
+    s = _mask_logits(_softcap(s, softcap), qpos, kpos, mask_mode, window)
+
+    m = all_reduce_over(s.amax(dim=-1, keepdim=True), mesh, seq_dims, "max")
+    p = torch.exp(s - m)
+    den = all_reduce_over(p.sum(dim=-1), mesh, seq_dims)  # [B, K, G, Lq]
+    num = all_reduce_over(einsum("bkgqs,bskd->bkgqd", p, vl.to(torch.float32)), mesh,
+                          seq_dims)
+    out = (num / den[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Lq, H, Dv).to(ql.dtype)
+    return DTensor.from_local(out, mesh, q_want, run_check=False).redistribute(
+        mesh, q_placements)
 
 
 def _update_slice(buf: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> None:
     """``jax.lax.dynamic_update_slice`` of ``new`` into ``buf`` along axis
     1 at the device scalar ``start`` (clamped so that ``new`` fits), in
     place: no host sync."""
+    from torch.distributed.tensor import DTensor
+
     S, C = new.shape[1], buf.shape[1]
-    idx = torch.clamp(start, 0, C - S).to(torch.int64) + torch.arange(S, device=buf.device)
-    buf.index_copy_(1, idx, new)
+    idx = torch.clamp(whole(start), 0, C - S).to(torch.int64) + torch.arange(
+        S, device=buf.device)
+    if not isinstance(buf, DTensor):
+        buf.index_copy_(1, idx, new)
+        return
+    # a cache sharded on the sequence: the rank holding a slot writes it
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = [Replicate() if p == Shard(1) else p for p in buf.placements]
+    nl = new.redistribute(buf.device_mesh, want).to_local()
+    off, cl = local_block(buf, 1)
+    local = buf.to_local()
+    li = idx - off
+    inside = (li >= 0) & (li < cl)
+    li = torch.clamp(li, 0, cl - 1)
+    keep = local.index_select(1, li)
+    local.index_copy_(1, li, torch.where(inside.view(1, -1, *([1] * (nl.ndim - 2))), nl, keep))
 
 
 # ---------------------------------------------------------------------------
@@ -198,9 +299,9 @@ def gqa_attention(params: dict, cfg: AttnConfig, x: torch.Tensor, positions: tor
     ``pos % C``, several to slot 0 (the reference's rule)."""
     theta = cfg.rope_theta if rope_theta is None else rope_theta
     src = x if kv_source is None else kv_source
-    q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
-    k = torch.einsum("bsd,dke->bske", src, params["wk"])
-    v = torch.einsum("bsd,dke->bske", src, params["wv"])
+    q = einsum("bsd,dhe->bshe", x, params["wq"])
+    k = einsum("bsd,dke->bske", src, params["wk"])
+    v = einsum("bsd,dke->bske", src, params["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -232,7 +333,7 @@ def gqa_attention(params: dict, cfg: AttnConfig, x: torch.Tensor, positions: tor
         out = attend(q, cache["k"], cache["v"], pos1d, k_positions, mask_mode=mask_mode,
                      window=window, softcap=cfg.softcap)
         pos.add_(q.shape[1])
-    return torch.einsum("bshe,hed->bsd", out, params["wo"]), cache
+    return einsum("bshe,hed->bsd", out, params["wo"]), cache
 
 
 def init_gqa_cache(batch: int, ctx: int, cfg: AttnConfig, *, window: int = 0,
@@ -257,24 +358,24 @@ def mla_attention(params: dict, cfg: AttnConfig, x: torch.Tensor, positions: tor
     the query, w_uv applied after)."""
     m = cfg.mla
     H = cfg.n_heads
-    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, params["w_dq"]), params["q_ln"])
-    q = torch.einsum("bsr,rhe->bshe", cq, params["w_uq"])  # e = nope + rope
+    cq = rms_norm(einsum("bsd,dr->bsr", x, params["w_dq"]), params["q_ln"])
+    q = einsum("bsr,rhe->bshe", cq, params["w_uq"])  # e = nope + rope
     q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
-    c_kv = rms_norm(torch.einsum("bsd,dr->bsr", x, params["w_dkv"]), params["kv_ln"])
-    k_rope = torch.einsum("bsd,de->bse", x, params["w_kr"])  # shared across heads
+    c_kv = rms_norm(einsum("bsd,dr->bsr", x, params["w_dkv"]), params["kv_ln"])
+    k_rope = einsum("bsd,de->bse", x, params["w_kr"])  # shared across heads
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
     scale = (m.nope_dim + m.rope_dim) ** -0.5
 
     if cache is None:
         # prefill / training: expand the latents
-        k_nope = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uk"])
-        v = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uv"])
+        k_nope = einsum("bsr,rhe->bshe", c_kv, params["w_uk"])
+        v = einsum("bsr,rhe->bshe", c_kv, params["w_uv"])
         k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_rope.shape[:2], H,
                                                                   m.rope_dim)], -1)
         q_full = torch.cat([q_nope, q_rope], -1)
         out = attend(q_full, k_full, v, positions, positions, mask_mode=MASK_CAUSAL)
-        return torch.einsum("bshe,hed->bsd", out, params["wo"]), None
+        return einsum("bshe,hed->bsd", out, params["wo"]), None
 
     # decode: the absorbed form
     pos = cache["pos"]
@@ -282,15 +383,15 @@ def mla_attention(params: dict, cfg: AttnConfig, x: torch.Tensor, positions: tor
     _update_slice(cache["c_kv"], c_kv, pos % C)
     _update_slice(cache["k_rope"], k_rope, pos % C)
     cc, cr = cache["c_kv"].to(torch.float32), cache["k_rope"].to(torch.float32)
-    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, params["w_uk"])  # [B, S, H, r]
-    s = torch.einsum("bshr,btr->bhst", q_lat.to(torch.float32), cc)
-    s = s + torch.einsum("bshe,bte->bhst", q_rope.to(torch.float32), cr)
+    q_lat = einsum("bshe,rhe->bshr", q_nope, params["w_uk"])  # [B, S, H, r]
+    s = einsum("bshr,btr->bhst", q_lat.to(torch.float32), cc)
+    s = s + einsum("bshe,bte->bhst", q_rope.to(torch.float32), cr)
     valid = torch.arange(C, device=pos.device) <= pos
     s = torch.where(valid, s * scale, torch.full((), -1e30, device=s.device))
     p = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhst,btr->bshr", p, cc)  # [B, S, H, r]
-    out = torch.einsum("bshr,rhe->bshe", o_lat, params["w_uv"].to(torch.float32))
-    y = torch.einsum("bshe,hed->bsd", out.to(x.dtype), params["wo"])
+    o_lat = einsum("bhst,btr->bshr", p, cc)  # [B, S, H, r]
+    out = einsum("bshr,rhe->bshe", o_lat, params["w_uv"].to(torch.float32))
+    y = einsum("bshe,hed->bsd", out.to(x.dtype), params["wo"])
     pos.add_(x.shape[1])
     return y, cache
 

@@ -1,13 +1,38 @@
 """Shared model building blocks, port of ``repro/models/common.py``
-(``:73-141``): RMS and layer norm, RoPE, Qwen2-VL's multimodal RoPE
-(M-RoPE) and sinusoidal positions.
+(``:59-141``): ``shard_constraint``, RMS and layer norm, RoPE, Qwen2-VL's
+multimodal RoPE (M-RoPE) and sinusoidal positions.
 
-The reference's sharding helpers (``ShardingRules``, ``logical_shard``,
-``shard_constraint``) are no-ops on one card and are not ported.
+The reference's logical-axis helpers (``ShardingRules``,
+``logical_shard``) have no caller in its models and are not ported.
 """
 from __future__ import annotations
 
 import torch
+
+
+def shard_constraint(x: torch.Tensor, spec) -> torch.Tensor:
+    """On a DTensor, ``x`` redistributed to ``spec``'s placements on its
+    mesh (``launch.sharding.P``: a mesh axis, a tuple of them or None per
+    dim).  A dim the named axes do not divide stays unsharded (XLA would
+    pad it; a DTensor cannot view through an uneven shard).  On a plain
+    tensor the identity, as the reference's constraint is outside a
+    mesh."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.launch.sharding import P, axis_sizes, placements
+
+    sizes = axis_sizes(x.device_mesh)
+
+    def fits(d, s) -> bool:
+        n = 1
+        for a in (() if s is None else s if isinstance(s, tuple) else (s,)):
+            n *= sizes[a]
+        return x.shape[d] % n == 0
+
+    spec = P(*(s if fits(d, s) else None for d, s in enumerate(spec)))
+    return x.redistribute(x.device_mesh, placements(x.device_mesh, spec))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -61,7 +86,7 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections: tuple[int, 
         raise ValueError(f"M-RoPE sections {sections} do not cover half of head_dim {d}")
     freqs = rope_freqs(d, theta, x.device)  # [D/2]
     stream = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                     torch.tensor(sections, device=x.device))
+                                     torch.tensor(sections, device=x.device), output_size=d // 2)
     pos = positions3.to(torch.float32).index_select(1, stream).transpose(1, 2)  # [B, S, D/2]
     ang = pos * freqs
     cos = torch.cos(ang)[..., None, :]  # [B, S, 1, D/2]

@@ -34,7 +34,6 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
@@ -42,7 +41,8 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models import ssm as S
-from repro_torch.models.common import layer_norm, normal_init, rms_norm
+from repro_torch.models.common import layer_norm, normal_init, rms_norm, shard_constraint
+from repro_torch.models.spmd import einsum, embed_lookup, replicate_dim
 
 
 @dataclass(frozen=True)
@@ -184,6 +184,28 @@ def _apply_layer(params: dict, cfg: ModelConfig, spec: LayerSpec, x: torch.Tenso
     return x, aux
 
 
+def _act_spec(batch_axes):
+    """[B, S, d] activations sharded on the batch axes."""
+    from repro_torch.launch.sharding import P
+
+    return P(batch_axes, None, None)
+
+
+def gold_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``logits[..., targets]`` (float32 logits [..., V], integer targets
+    [...]).  A plain tensor gathers; a DTensor (vocab possibly sharded,
+    where DTensor has no gather) sums the logits under a one-hot of the
+    targets, which selects the same value exactly (every other term is a
+    zero)."""
+    from torch.distributed.tensor import DTensor
+
+    idx = targets.to(torch.int64)[..., None]
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, idx)[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(idx == vocab, logits, 0.0).sum(-1)
+
+
 def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, ctx: int, dtype,
                       device) -> dict:
     zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
@@ -226,7 +248,7 @@ def stack_layers(count: int, draw):
 def _unstack(stacked, count: int) -> list:
     """A stage slot's stacked tree -> ``count`` per-layer trees of views,
     one ``torch.unbind`` per leaf."""
-    views = {path: torch.unbind(leaf, 0) for path, leaf in tree.leaves(stacked)}
+    views = {path: torch.unbind(replicate_dim(leaf, 0), 0) for path, leaf in tree.leaves(stacked)}
     return [tree.rebuild(stacked, lambda path, _, c=c: views[path][c]) for c in range(count)]
 
 
@@ -280,7 +302,7 @@ class DecoderLM:
         return caches
 
     def _period(self, stage: Stage, layer_params: list, x: torch.Tensor,
-                positions: torch.Tensor, layer_caches: list | None):
+                positions: torch.Tensor, layer_caches: list | None, batch_axes=None):
         """One period of a stage -> (x, aux loss).  The aux loss is the
         period's LAST layer's (None if that layer is dense): the
         reference's scan body adds only the ``a`` its layer loop ends
@@ -290,19 +312,26 @@ class DecoderLM:
         for pi, (lp, spec) in enumerate(zip(layer_params, stage.specs)):
             x, a = _apply_layer(lp, self.cfg, spec, x, positions,
                                 None if layer_caches is None else layer_caches[pi])
+            if batch_axes is not None:
+                x = shard_constraint(x, _act_spec(batch_axes))
         return x, a
 
     def apply(self, params: dict, tokens: torch.Tensor, positions: torch.Tensor,
-              cache: list | None = None):
+              cache: list | None = None, batch_axes=None):
         """tokens [B, S] (integer), positions [S] ([B, 3, S] for M-RoPE)
         -> (logits [B, S, V] in the parameters' dtype, cache, aux loss).
         With a cache (from ``init_cache``) the new keys, values and
         recurrent states are written into it in place and it is returned;
-        without one the cache returned is None."""
+        without one the cache returned is None.  ``batch_axes`` (mesh axis
+        names) constrains the activations to batch-sharded after the
+        embedding and after every layer, as the reference does; it acts on
+        DTensors only (``shard_constraint``)."""
         cfg = self.cfg
-        x = F.embedding(tokens.to(torch.int64), params["embed"])
+        x = embed_lookup(tokens, params["embed"])
         if cfg.emb_scale:  # sqrt(d) rounded to the activations' dtype first, as the reference
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+        if batch_axes is not None:
+            x = shard_constraint(x, _act_spec(batch_axes))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, stage in enumerate(self.stages):
             slots = [_unstack(lp, stage.count) for lp in params[f"stage{si}"]]
@@ -313,36 +342,37 @@ class DecoderLM:
                                 for slot in slots]
                 if cache is not None:
                     x, a = self._period(stage, layer_params, x, positions,
-                                        [slot[c] for slot in cslots])
+                                        [slot[c] for slot in cslots], batch_axes)
                 elif cfg.remat:
                     x, a = checkpoint(self._period, stage, layer_params, x, positions, None,
-                                      use_reentrant=False)
+                                      batch_axes, use_reentrant=False)
                 else:
-                    x, a = self._period(stage, layer_params, x, positions, None)
+                    x, a = self._period(stage, layer_params, x, positions, None, batch_axes)
                 if a is not None:
                     aux = aux + a
         x = _norm(cfg, x, params["final_norm"])
         if cfg.tie_embeddings:
-            logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+            logits = einsum("bsd,vd->bsv", x, params["embed"])
         else:
-            logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+            logits = einsum("bsd,dv->bsv", x, params["lm_head"])
         if cfg.logit_softcap:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         return logits, cache, aux
 
     def loss(self, params: dict, tokens: torch.Tensor, targets: torch.Tensor,
-             positions: torch.Tensor):
+             positions: torch.Tensor, batch_axes=None):
         """Mean next-token NLL plus the 1e-4 logz^2 z-loss and the MoE
         balance loss, in float32.  Returns (loss, {"nll", "aux"})."""
-        logits, _, aux = self.apply(params, tokens, positions)
+        logits, _, aux = self.apply(params, tokens, positions, batch_axes=batch_axes)
         logits = logits.to(torch.float32)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets.to(torch.int64)[..., None])[..., 0]
+        gold = gold_logits(logits, targets)
         nll = (logz - gold).mean()
         zloss = 1e-4 * (logz ** 2).mean()
         return nll + zloss + aux, {"nll": nll, "aux": aux}
 
-    def decode_step(self, params: dict, cache: list, token: torch.Tensor, pos):
+    def decode_step(self, params: dict, cache: list, token: torch.Tensor, pos,
+                    batch_axes=None):
         """token [B, 1]; pos the absolute position (an int, or an integer
         tensor on the model's device: a 0-d one costs no host sync) ->
         (logits [B, V], cache).  Under M-RoPE a 0-d ``pos`` is every
@@ -353,5 +383,6 @@ class DecoderLM:
             positions = pos.to(torch.int32).reshape(1, 1, 1).expand(token.shape[0], 3, 1)
         else:
             positions = pos[None] if pos.ndim == 0 else pos
-        logits, cache, _ = self.apply(params, token, positions, cache=cache)
+        logits, cache, _ = self.apply(params, token, positions, cache=cache,
+                                      batch_axes=batch_axes)
         return logits[:, -1], cache

@@ -23,15 +23,16 @@ or a sequence that long (``ValueError``) and never indexes past it.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
-from repro_torch.models.common import normal_init, sinusoidal_positions
-from repro_torch.models.decoder import ModelConfig, _norm, _unstack, stack_layers
+from repro_torch.models.common import normal_init, shard_constraint, sinusoidal_positions
+from repro_torch.models.spmd import einsum, embed_lookup
+from repro_torch.models.decoder import (ModelConfig, _act_spec, _norm, _unstack, gold_logits,
+                                        stack_layers)
 
 
 class EncDecLM:
@@ -87,9 +88,10 @@ class EncDecLM:
         x = x + y
         return x + M.apply_mlp(lp["ffn"], _norm(cfg, x, lp["ln2"]), cfg.act)
 
-    def encode(self, params: dict, enc_feats: torch.Tensor) -> torch.Tensor:
+    def encode(self, params: dict, enc_feats: torch.Tensor, batch_axes=None) -> torch.Tensor:
         """enc_feats: [B, T, d] frame embeddings (the stub frontend's) ->
-        the encoder's output [B, T, d]."""
+        the encoder's output [B, T, d].  ``batch_axes``: as
+        ``DecoderLM.apply``'s (each layer's output batch-sharded)."""
         cfg = self.cfg
         T = enc_feats.shape[1]
         x = enc_feats + sinusoidal_positions(T, cfg.d_model, enc_feats.device).to(
@@ -100,6 +102,8 @@ class EncDecLM:
                 x = checkpoint(self._enc_layer, lp, x, pos, use_reentrant=False)
             else:
                 x = self._enc_layer(lp, x, pos)
+            if batch_axes is not None:
+                x = shard_constraint(x, _act_spec(batch_axes))
         return _norm(cfg, x, params["enc_norm"])
 
     # -- decoder -------------------------------------------------------------
@@ -117,12 +121,12 @@ class EncDecLM:
         return x + M.apply_mlp(lp["ffn"], _norm(cfg, x, lp["ln2"]), cfg.act)
 
     def decode(self, params: dict, enc_out: torch.Tensor, tokens: torch.Tensor,
-               positions: torch.Tensor, cache: dict | None = None):
+               positions: torch.Tensor, cache: dict | None = None, batch_axes=None):
         """tokens [B, S] at positions [S] against enc_out [B, T, d] ->
         (logits [B, S, V], cache).  A cache (``init_cache``) is written in
         place and returned; without one the cache returned is None."""
         cfg = self.cfg
-        x = (F.embedding(tokens.to(torch.int64), params["embed"])
+        x = (embed_lookup(tokens, params["embed"])
              + params["pos_dec"][positions.to(torch.int64)])
         layers = _unstack(params["dec"], cfg.n_layers)
         caches = (None if cache is None
@@ -135,21 +139,23 @@ class EncDecLM:
                                use_reentrant=False)
             else:
                 x = self._dec_layer(lp, x, enc_out, positions, None)
+            if batch_axes is not None:
+                x = shard_constraint(x, _act_spec(batch_axes))
         x = _norm(cfg, x, params["final_norm"])
-        return torch.einsum("bsd,vd->bsv", x, params["embed"]), cache
+        return einsum("bsd,vd->bsv", x, params["embed"]), cache
 
     # -- steps ---------------------------------------------------------------
     def loss(self, params: dict, enc_feats: torch.Tensor, tokens: torch.Tensor,
-             targets: torch.Tensor):
+             targets: torch.Tensor, batch_axes=None):
         """Mean next-token NLL plus the 1e-4 logz^2 z-loss, in float32.
         Returns (loss, {"nll"})."""
         self.check_positions(tokens.shape[1])
-        enc_out = self.encode(params, enc_feats)
+        enc_out = self.encode(params, enc_feats, batch_axes)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        logits, _ = self.decode(params, enc_out, tokens, positions)
+        logits, _ = self.decode(params, enc_out, tokens, positions, batch_axes=batch_axes)
         logits = logits.to(torch.float32)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets.to(torch.int64)[..., None])[..., 0]
+        gold = gold_logits(logits, targets)
         nll = (logz - gold).mean()
         return nll + 1e-4 * (logz ** 2).mean(), {"nll": nll}
 
@@ -162,10 +168,10 @@ class EncDecLM:
             one, lambda _, t: t.expand(self.cfg.n_layers, *t.shape).clone())}
 
     def decode_step(self, params: dict, cache: dict, enc_out: torch.Tensor,
-                    token: torch.Tensor, pos):
+                    token: torch.Tensor, pos, batch_axes=None):
         """token [B, 1]; pos the absolute position (an int, or an integer
         tensor on the model's device) -> (logits [B, V], cache)."""
         pos = torch.as_tensor(pos, device=self.device)
         logits, cache = self.decode(params, enc_out, token, pos[None] if pos.ndim == 0 else pos,
-                                    cache=cache)
+                                    cache=cache, batch_axes=batch_axes)
         return logits[:, -1], cache

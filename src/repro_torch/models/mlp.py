@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import normal_init
+from repro_torch.models.spmd import RowBlocks, einsum
 
 
 @dataclass(frozen=True)
@@ -43,13 +44,13 @@ def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     """x [B, S, d] -> "silu": silu(x W_gate) * (x W_up) W_down; "gelu":
     gelu(x W_up) W_down with ``jax.nn.gelu``'s default, the tanh form."""
     if act == "silu":
-        h = F.silu(torch.einsum("bsd,df->bsf", x, params["w_gate"]))
-        h = h * torch.einsum("bsd,df->bsf", x, params["w_up"])
+        h = F.silu(einsum("bsd,df->bsf", x, params["w_gate"]))
+        h = h * einsum("bsd,df->bsf", x, params["w_up"])
     elif act == "gelu":
-        h = F.gelu(torch.einsum("bsd,df->bsf", x, params["w_up"]), approximate="tanh")
+        h = F.gelu(einsum("bsd,df->bsf", x, params["w_up"]), approximate="tanh")
     else:
         raise ValueError(act)
-    return torch.einsum("bsf,fd->bsd", h, params["w_down"])
+    return einsum("bsf,fd->bsd", h, params["w_down"])
 
 
 def init_moe_params(d_model: int, cfg: MoEConfig, *, generator: torch.Generator,
@@ -88,14 +89,23 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: MoEConfig) -> tuple[torch.Tens
     Every kept pair owns one slot of the [E, cap] buffer, so the dispatch
     is an indexed assignment onto zeros (``index_put_``), deterministic on
     the card; the dropped pairs all go to one trash row, which is cut off
-    unread."""
+    unread.
+
+    On DTensors each rank routes, dispatches and combines the tokens of
+    its batch rows into its own [E, cap] buffer, cap from its own token
+    count (capacity per data shard, as GShard's; one rank: the same
+    buffer), and only the expert products run sharded (experts on
+    ``model``): DTensor has no rule for the dispatch's indexed writes.  The
+    aux loss is then the mean of the shards' own."""
+    blocks = RowBlocks(x)
+    x_in, x = x, blocks.local(x)
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
     E, k = cfg.n_experts, cfg.top_k
     cap = int(max(1, round(T * k * cfg.capacity_factor / E)))  # Python's round, as the reference
 
-    logits = xt.to(torch.float32) @ params["router"]
+    logits = xt.to(torch.float32) @ blocks.param(params["router"])
     w, idx = _route(logits, cfg)  # [T, k]
 
     flat_e = idx.reshape(-1)  # [T*k], the (t, k) dispatch order
@@ -113,16 +123,16 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: MoEConfig) -> tuple[torch.Tens
     slot = torch.where(keep, flat_e * cap + pos_in_e, E * cap)  # overflow -> trash row
     buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((slot,), xt.repeat_interleave(k, dim=0))
-    xe = buf[:-1].reshape(E, cap, d)
+    xe = blocks.wrap(buf[:-1].reshape(E, cap, d), dim=1)
 
-    h = F.silu(torch.einsum("ecd,edf->ecf", xe, params["we_gate"]))
-    h = h * torch.einsum("ecd,edf->ecf", xe, params["we_up"])
-    ye = torch.einsum("ecf,efd->ecd", h, params["we_down"])  # [E, cap, d]
+    h = F.silu(einsum("ecd,edf->ecf", xe, params["we_gate"]))
+    h = h * einsum("ecd,edf->ecf", xe, params["we_up"])
+    ye = blocks.local(einsum("ecf,efd->ecd", h, params["we_down"]), dim=1)  # [E, cap, d]
 
     # gather back: each (t, k) reads its slot
     ytk = ye.reshape(E * cap, d)[torch.clamp(slot, max=E * cap - 1)]
     ytk = torch.where(keep[:, None], ytk, torch.zeros((), dtype=ytk.dtype, device=ytk.device))
-    out = (ytk * wflat[:, None]).reshape(T, k, d).sum(1).reshape(B, S, d)
+    out = blocks.wrap((ytk * wflat[:, None]).reshape(T, k, d).sum(1).reshape(B, S, d))
     if "shared" in params:
-        out = out + apply_mlp(params["shared"], x, "silu")
-    return out.to(x.dtype), aux
+        out = out + apply_mlp(params["shared"], x_in, "silu")
+    return out.to(x.dtype), blocks.wrap(aux, dim=None)

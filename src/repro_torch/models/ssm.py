@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import normal_init
+from repro_torch.models.spmd import einsum, reshape
 
 
 @dataclass(frozen=True)
@@ -96,8 +97,8 @@ def init_rwkv6_params(cfg: RWKV6Config, *, generator: torch.Generator,
 def _token_shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
     """x: [B, T, d] -> the previous token's stream; ``prev`` [B, d] is the
     token before x (zeros where None)."""
-    if prev is None:
-        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    if prev is None:  # a zero row, then all but the last (DTensor has no rule for pad)
+        return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     if x.shape[1] == 1:
         return prev[:, None]
     return torch.cat([prev[:, None], x[:, :-1]], dim=1)
@@ -121,40 +122,40 @@ def rwkv6_time_mix(params: dict, cfg: RWKV6Config, x: torch.Tensor, state: dict 
     xs = _token_shift(x, None if state is None else state["shift"])
     xx = xs - x
     xxx = x + xx * params["mu_x"]
-    mix = torch.tanh(torch.einsum("btd,dr->btr", xxx, params["mix_w1"]))
-    mix = mix.reshape(B, T, 5, -1)
-    dmu = torch.einsum("btfr,frd->fbtd", mix, params["mix_w2"])  # [5, B, T, d]
+    mix = torch.tanh(einsum("btd,dr->btr", xxx, params["mix_w1"]))
+    mix = reshape(mix, B, T, 5, mix.shape[-1] // 5)
+    dmu = einsum("btfr,frd->fbtd", mix, params["mix_w2"])  # [5, B, T, d]
     feeds = {n: x + xx * (params["mu"][i] + dmu[i]) for i, n in enumerate(_MIX_NAMES)}
 
-    r = torch.einsum("btd,de->bte", feeds["r"], params["wr"]).reshape(B, T, H, hd)
-    k = torch.einsum("btd,de->bte", feeds["k"], params["wk"]).reshape(B, T, H, hd)
-    v = torch.einsum("btd,de->bte", feeds["v"], params["wv"]).reshape(B, T, H, hd)
-    g = F.silu(torch.einsum("btd,de->bte", feeds["g"], params["wg"]))
+    r = reshape(einsum("btd,de->bte", feeds["r"], params["wr"]), B, T, H, hd)
+    k = reshape(einsum("btd,de->bte", feeds["k"], params["wk"]), B, T, H, hd)
+    v = reshape(einsum("btd,de->bte", feeds["v"], params["wv"]), B, T, H, hd)
+    g = F.silu(einsum("btd,de->bte", feeds["g"], params["wg"]))
     # data-dependent decay in (0, 1): w = exp(-exp(w0 + lora(x_w)))
-    dw = torch.einsum("btr,rd->btd", torch.tanh(
-        torch.einsum("btd,dr->btr", feeds["w"], params["decay_w1"])), params["decay_w2"])
-    w = torch.exp(-torch.exp(params["w0"] + dw)).reshape(B, T, H, hd)
+    dw = einsum("btr,rd->btd", torch.tanh(
+        einsum("btd,dr->btr", feeds["w"], params["decay_w1"])), params["decay_w2"])
+    w = reshape(torch.exp(-torch.exp(params["w0"] + dw)), B, T, H, hd)
     u = params["u"][None, :, :, None]
 
     def step(s, rt, kt, vt, wt):  # [B, H, hd] each
         kv = kt[..., :, None] * vt[..., None, :]  # outer product [B, H, k, v]
-        out = torch.einsum("bhk,bhkv->bhv", rt, s + u * kv)
+        out = einsum("bhk,bhkv->bhv", rt, s + u * kv)
         return s * wt[..., None] + kv, out  # the decay runs along the key dim
 
     wkv0 = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
             if state is None else state["wkv"])
     seq = tuple(t.transpose(0, 1).to(torch.float32) for t in (r, k, v, w))
     new_wkv, outs = _scan(step, wkv0, seq)
-    out = outs.transpose(0, 1).reshape(B, T, d).to(x.dtype)
+    out = reshape(outs.transpose(0, 1), B, T, d).to(x.dtype)
     # per-head group norm (the population variance, computed in float32
     # and rounded to x's dtype, as jnp's mean and var), then gate and project
-    out = out.reshape(B, T, H, hd)
+    out = reshape(out, B, T, H, hd)
     o32 = out.to(torch.float32)
     mu_o = o32.mean(-1, keepdim=True)
     var_o = ((o32 - mu_o) ** 2).mean(-1, keepdim=True).to(out.dtype)
-    out = ((out - mu_o.to(out.dtype)) * torch.rsqrt(var_o + 1e-5)).reshape(B, T, d)
+    out = reshape((out - mu_o.to(out.dtype)) * torch.rsqrt(var_o + 1e-5), B, T, d)
     out = out * params["ln_out"]
-    out = torch.einsum("btd,de->bte", out * g, params["wo"])
+    out = einsum("btd,de->bte", out * g, params["wo"])
     if state is None:
         return out, {"shift": x[:, -1], "wkv": new_wkv}
     state["shift"].copy_(x[:, -1])
@@ -170,9 +171,9 @@ def rwkv6_channel_mix(params: dict, cfg: RWKV6Config, x: torch.Tensor,
     xx = xs - x
     xr = x + xx * params["cmix_r"]
     xk = x + xx * params["cmix_k"]
-    rr = torch.sigmoid(torch.einsum("btd,de->bte", xr, params["cm_wr"]))
-    kk = torch.square(torch.relu(torch.einsum("btd,df->btf", xk, params["cm_wk"])))
-    out = rr * torch.einsum("btf,fd->btd", kk, params["cm_wv"])
+    rr = torch.sigmoid(einsum("btd,de->bte", xr, params["cm_wr"]))
+    kk = torch.square(torch.relu(einsum("btd,df->btf", xk, params["cm_wk"])))
+    out = rr * einsum("btf,fd->btd", kk, params["cm_wv"])
     if state is None:
         return out, x[:, -1]
     state.copy_(x[:, -1])
@@ -222,20 +223,20 @@ def mamba2_mix(params: dict, cfg: Mamba2Config, x: torch.Tensor, state: dict | N
     float32} or None (zeros).  Returns (out [B, T, d], state)."""
     B, T, d = x.shape
     di, N, H, Pdim = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
-    zxbcdt = torch.einsum("btd,de->bte", x, params["w_in"])
+    zxbcdt = einsum("btd,de->bte", x, params["w_in"])
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
     xbc, conv_state = _causal_conv1d(xbc, params["conv_w"], params["conv_b"],
                                      None if state is None else state["conv"])
     xin, Bmat, Cmat = torch.split(xbc, [di, N, N], dim=-1)
     dt = F.softplus(dt + params["dt_bias"])  # [B, T, H]
     A = -torch.exp(params["A_log"].to(torch.float32))  # [H], negative
-    xh = xin.reshape(B, T, H, Pdim)
+    xh = reshape(xin, B, T, H, Pdim)
 
     def step(s, xt, bt, ct, dtt):  # [B, H, P], [B, N], [B, N], [B, H]
         decay = torch.exp(dtt * A)  # [B, H]
         upd = (xt * dtt[..., None])[..., None] * bt[:, None, None, :]  # [B, H, P, N]
         s = s * decay[..., None, None] + upd
-        return s, torch.einsum("bhpn,bn->bhp", s, ct)
+        return s, einsum("bhpn,bn->bhp", s, ct)
 
     ssm0 = (torch.zeros((B, H, Pdim, N), dtype=torch.float32, device=x.device)
             if state is None else state["ssm"])
@@ -243,12 +244,12 @@ def mamba2_mix(params: dict, cfg: Mamba2Config, x: torch.Tensor, state: dict | N
     new_ssm, ys = _scan(step, ssm0, seq)
     y = ys.transpose(0, 1)  # [B, T, H, P]
     y = y + params["D"][None, None, :, None] * xh.to(torch.float32)
-    y = y.reshape(B, T, di).to(x.dtype)
+    y = reshape(y, B, T, di).to(x.dtype)
     # gated RMSNorm (scaled by ``norm`` itself, not 1 + norm), then out-proj
     y = y * F.silu(z)
     y32 = y.to(torch.float32)
     y = (y32 * torch.rsqrt(torch.mean(y32 * y32, -1, keepdim=True) + 1e-6)).to(y.dtype)
-    out = torch.einsum("bte,ed->btd", y * params["norm"], params["w_out"])
+    out = einsum("bte,ed->btd", y * params["norm"], params["w_out"])
     if state is None:
         return out, {"conv": conv_state, "ssm": new_ssm}
     state["conv"].copy_(conv_state)

@@ -60,14 +60,17 @@ def _leaf_seed(rng, index: int) -> int:
     return (int(s[0]) << 31 | int(s[1])) & ((1 << 63) - 1)
 
 
-def _store(x: torch.Tensor, dtype: str, generator: torch.Generator | None = None):
-    """float32 moment -> its stored form."""
+def _store(x: torch.Tensor, dtype: str, generator: torch.Generator | None = None,
+           stochastic: bool = False):
+    """float32 moment -> its stored form; ``stochastic``: int8 codes
+    rounded with noise drawn from ``generator`` (None on the ``meta``
+    device, which has no generator and draws nothing)."""
     if dtype == "bf16":
         return x.to(torch.bfloat16)
     # 0-d divisors: CUDA divides by a Python scalar through its reciprocal
     scale = torch.clamp(x.abs().max(), min=1e-30) / torch.full((), 127.0, device=x.device)
     y = x / scale
-    if generator is not None:  # stochastic rounding (first moment)
+    if stochastic:  # the first moment
         y = torch.floor(y + torch.rand(y.shape, generator=generator, dtype=torch.float32,
                                        device=y.device))
     else:
@@ -116,7 +119,7 @@ def update(params, state: dict, grads, lr: float, cfg: AdamWConfig = AdamWConfig
             p.copy_(pf - lr * upd)
         if mode != "fp32":
             gen = None
-            if mode == "int8":
+            if mode == "int8" and not p.is_meta:
                 gen = torch.Generator(device=p.device).manual_seed(_leaf_seed(rng, i))
-            tree.put(state["m"], path, _store(m, mode, gen))
+            tree.put(state["m"], path, _store(m, mode, gen, stochastic=True))
             tree.put(state["v"], path, _store(v, mode))
