@@ -279,7 +279,12 @@ Phases (any failure raises and the script exits non-zero):
               file's, and --resume without --stream (exit 2); then compress
               without --predictor (interp) -> decompress -> verify; and the
               CI serve smoke, ``serve nyx=<tiled> dm=<stream> --port 0
-              --smoke``, exits 0;
+              --smoke``, exits 0; then the static-analysis gate, ``lint``:
+              ``--json`` over the checkout's ``src/repro_torch`` in this
+              process, clean under all five rules (its files and seconds
+              printed), a copy of the tree with one seeded RA003 violation
+              (a ``csrc`` entry no wrapper reaches) in a subprocess, exit 1
+              with that one finding, and ``--rule RA999``, exit 2;
 14. kernels -- each kernel again at its path's shapes: against its plain
               version, then timed (see ``kernel_ms`` and
               ``launch_events_ms``) beside the plain version, a library call
@@ -1588,10 +1593,64 @@ def cli_path(tmp: Path) -> None:
     smoke = run("serve", f"nyx={tmp / 'cli_tiled.gw'}", f"dm={tmp / 'cli_stream.gw'}",
                 "--port", "0", "--smoke").strip().splitlines()[-1]
     check(smoke.startswith("smoke ok"), f"cli serve --smoke printed {smoke!r}")
+    lint = lint_gate(tmp, env)
     emit({"phase": "cli", "input": "synthetic:temperature:64", "roi": roi, "serve_smoke": smoke,
           "container_bytes": sizes, "flipped_lane_verify_exit": 1, "stream_line": streamed,
-          "resume_without_stream_exit": 2,
+          "resume_without_stream_exit": 2, "lint": lint,
           "seconds": {k: [round(v, 3) for v in vs] for k, vs in took.items()}})
+
+
+def lint_gate(tmp: Path, env: dict) -> dict:
+    """``python -m repro_torch.cli lint``: the checkout's tree in this
+    process (clean, all five rules, timed around ``cli.main``), a copy with
+    one seeded RA003 violation in a subprocess (exit 1, that one finding),
+    and an unknown rule (exit 2).  Source text only: nothing runs on the
+    card."""
+    import contextlib
+    import io
+
+    from repro_torch import cli
+
+    def in_process(*argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            try:
+                code = cli.main(["lint", *argv])
+            except SystemExit as e:
+                code = e.code
+        return code, out.getvalue()
+
+    port = ROOT / "src" / "repro_torch"
+    t = time.perf_counter()
+    code, out = in_process("--json")
+    lint_s = time.perf_counter() - t
+    doc = json.loads(out)
+    check(code == 0 and doc["clean"] and Path(doc["root"]) == port
+          and doc["rules"] == ["RA001", "RA002", "RA003", "RA004", "RA005"],
+          f"lint of the checkout exited {code}: {out[-2000:]}")
+    seeded = tmp / "lint_seeded"
+    shutil.copytree(port, seeded / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (seeded / "tests").symlink_to(ROOT / "tests")
+    shutil.copy(ROOT / "chip_smoke.py", seeded / "chip_smoke.py")
+    cu = seeded / "src" / "repro_torch" / "csrc" / "lorenzo_quant.cu"
+    cu.write_text(cu.read_text() + '\nextern "C" int lorenzo_unreached(void* stream) '
+                                   "{ return 0; }\n")
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.cli", "lint", "--json", "--root",
+                        str(seeded / "src" / "repro_torch")], env=env, capture_output=True,
+                       text=True, timeout=300)
+    seeded_s = time.perf_counter() - t
+    found = json.loads(r.stdout)["findings"] if r.returncode == 1 else r.stderr[-2000:]
+    check(r.returncode == 1 and len(found) == 1 and found[0]["rule"] == "RA003"
+          and "lorenzo_unreached" in found[0]["message"],
+          f"lint of the seeded copy exited {r.returncode}: {found}")
+    unknown, _ = in_process("--rule", "RA999")
+    check(unknown == 2, f"lint --rule RA999 exited {unknown}, not 2")
+    return {"files": doc["files"], "rules": doc["rules"], "seconds": lint_s,
+            "seeded_exit": r.returncode, "seeded_finding": f"{found[0]['path']}:"
+            f"{found[0]['line']} {found[0]['rule']}", "seeded_subprocess_s": seeded_s,
+            "unknown_rule_exit": unknown}
 
 
 def gwds_path(x_np, tmp: Path, art, main_id: dict) -> dict:

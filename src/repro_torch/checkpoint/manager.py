@@ -143,7 +143,7 @@ class CheckpointManager:
                 stream.synchronize()
             else:
                 self._write(step, flat, codec)
-        except BaseException as e:  # handed to wait(), which re-raises it
+        except BaseException as e:  # lint: allow RA004 -- handed to wait(), which re-raises it
             self._error = e
 
     def _write(self, step: int, flat: dict[str, torch.Tensor], codec) -> None:

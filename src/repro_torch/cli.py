@@ -15,6 +15,8 @@
                               [--cache-bytes 256M] [--mem-budget 256M]
                               [--on-corrupt raise|quarantine] [--batch-wait-ms 2]
                               [--no-batcher] [--smoke]
+    python -m repro_torch.cli lint       [--json] [--rule RAnnn ...] [--root DIR]
+                              [--baseline PATH [--write-baseline]]
 
 ``compress IN`` takes a ``.npy`` volume, or ``synthetic:<field>[:<side>]``
 (e.g. ``synthetic:temperature:24``) for a generated Nyx-like field (seed 1,
@@ -45,7 +47,10 @@ over the named volumes behind one shared tile cache, decoding on
 ``--device``; ``--smoke`` exercises every endpoint over HTTP and exits.  A
 GWDS dataset is not a volume: ``serve`` refuses one (exit 2).
 
-Not ported: the ``lint`` command.
+``lint`` runs the AST static-analysis suite (``repro_torch.analysis``,
+RA001-RA005, docs/ANALYSIS.md) over the ``repro_torch`` tree: 0 clean, 1
+findings.  It reads source text only: no device, no tensor, and
+``--device`` does not apply.
 
 Exit codes are uniform across subcommands: **0** success, **1** integrity
 failure (corrupt container / failed CRC), **2** usage error (bad
@@ -381,6 +386,42 @@ def _serve_smoke(server) -> int:
     return EXIT_OK
 
 
+def cmd_lint(args) -> int:
+    from pathlib import Path
+
+    from repro_torch.analysis import run_analysis
+    from repro_torch.analysis.engine import all_rules, default_root
+    from repro_torch.analysis.report import (apply_baseline, load_baseline, render_json,
+                                             render_text)
+
+    root = Path(args.root).resolve() if args.root else default_root()
+    try:
+        findings = run_analysis(root=root, rules=args.rule or None)
+    except ValueError as e:
+        raise _fail("lint", e) from None
+    rules = list(dict.fromkeys(args.rule)) if args.rule else sorted(all_rules())
+    files = sum(1 for p in root.rglob("*.py") if "__pycache__" not in p.parts)
+
+    if args.baseline and args.write_baseline:
+        Path(args.baseline).write_text(render_json(
+            findings, root=str(root), files=files, rules=rules) + "\n")
+        print(f"lint: wrote baseline with {len(findings)} finding(s) to {args.baseline}",
+              file=sys.stderr)
+        return EXIT_OK
+    if args.write_baseline:
+        raise _fail("lint", "--write-baseline needs --baseline PATH")
+    if args.baseline:
+        try:
+            accepted = load_baseline(Path(args.baseline).read_text())
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            raise _fail("lint", f"cannot read baseline {args.baseline!r}: {e}") from None
+        findings = apply_baseline(findings, accepted)
+
+    render = render_json if args.json else render_text
+    print(render(findings, root=str(root), files=files, rules=rules))
+    return EXIT_INTEGRITY if findings else EXIT_OK
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="repro_torch.cli", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -463,6 +504,21 @@ def main(argv: list[str] | None = None) -> int:
                    help="start, exercise every endpoint over HTTP (asserting cache hits "
                         "on a repeated ROI), then exit")
     s.set_defaults(fn=cmd_serve)
+
+    lint = sub.add_parser("lint", help="AST static-analysis gate over the repro_torch tree "
+                                       "(docs/ANALYSIS.md)")
+    lint.add_argument("--json", action="store_true",
+                      help="machine-readable report (the reference's JSON shape)")
+    lint.add_argument("--rule", action="append", metavar="RAnnn",
+                      help="run only these rule ids (repeatable)")
+    lint.add_argument("--root", default=None,
+                      help="tree to analyze (default: the installed repro_torch package "
+                           "-- src/repro_torch in a checkout)")
+    lint.add_argument("--baseline", default=None, metavar="PATH",
+                      help="JSON report of accepted findings to subtract")
+    lint.add_argument("--write-baseline", action="store_true",
+                      help="write current findings to --baseline and exit 0")
+    lint.set_defaults(fn=cmd_lint)
 
     args = ap.parse_args(argv)
     if args.cmd == "compress" and (args.eb is None) == (args.abs_eb is None):

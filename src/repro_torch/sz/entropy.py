@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.errors import CorruptContainerError
 from repro_torch.kernels import ops
 from repro_torch.kernels.huffman_encode import MAX_CHUNK
 from repro_torch.sz.artifact import ENTROPY_MAGIC
@@ -286,8 +287,9 @@ class HuffmanCodec:
         the reference fits caps its lengths there, so a longer code can only
         come from a damaged table."""
         if self.lengths.size and int(self.lengths.max()) > _FMT_CODE_LEN:
-            raise ValueError(f"corrupt Huffman table: a {int(self.lengths.max())}-bit "
-                             f"code (the format caps codes at {_FMT_CODE_LEN} bits)")
+            raise CorruptContainerError(
+                f"corrupt Huffman table: a {int(self.lengths.max())}-bit code (the format "
+                f"caps codes at {_FMT_CODE_LEN} bits)")
 
     def _pack_inputs(self, flat: torch.Tensor, chunk_size: int):
         """Per-symbol code lengths and codewords of ``flat`` as [C, chunk_size]

@@ -50,7 +50,9 @@ def test_port_imports_without_jax_in_a_fresh_interpreter():
             "import repro_torch.launch.train, repro_torch.launch.gwlz_dist\n"
             "import repro_torch.configs.gwlz_nyx, repro_torch.optim.grad_compress\n"
             "import repro_torch.models.ssm, repro_torch.models.encdec\n"
-            "import repro_torch.launch.serve\n"
+            "import repro_torch.launch.serve, repro_torch.analysis\n"
+            "from repro_torch.analysis import all_rules\n"
+            "assert sorted(all_rules()) == ['RA001', 'RA002', 'RA003', 'RA004', 'RA005']\n"
             "from repro_torch.configs import ARCH_IDS, get_config\n"
             "[get_config(a) for a in ARCH_IDS]\n"
             "print('ok')")
