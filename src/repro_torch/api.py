@@ -45,6 +45,7 @@ from collections.abc import Iterator, Mapping
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.pipeline import GWLZ, GWLZStats
 from repro_torch.core.trainer import GWLZTrainConfig
 from repro_torch.errors import CorruptContainerError, CorruptLaneError, IntegrityError
@@ -280,7 +281,8 @@ class CompressedVolume:
         return self.artifact.size_report()
 
     def to_bytes(self) -> bytes:
-        return self.artifact.to_bytes()
+        with obs.op("to_bytes"):
+            return self.artifact.to_bytes()
 
     def __repr__(self) -> str:
         kind = "GWTC tiled" if self.tiled else "SZJX"
@@ -295,15 +297,17 @@ class CompressedVolume:
         returned array is read-only: it IS the cache (monolithic slices are
         cut from it).  Copy to mutate."""
         self._ensure_open()
-        if self._cache is None:
-            with torch.no_grad():  # grad mode is per thread; a decode needs no graph
-                dec = self.pipeline.decode(self.artifact, device=self.device)
-            self._cache = dec.cpu().numpy()
-            self._cache.setflags(write=False)
-            self.stats.record(decoded=self.stats.tiles_total)
-            self._sync_quarantine()
-        else:
-            self.stats.record(hits=self.stats.tiles_total)
+        with obs.op("decode"):
+            if self._cache is None:
+                with torch.no_grad():  # grad mode is per thread; a decode needs no graph
+                    dec = self.pipeline.decode(self.artifact, device=self.device)
+                with obs.op("to_host"):
+                    self._cache = dec.cpu().numpy()
+                self._cache.setflags(write=False)
+                self.stats.record(decoded=self.stats.tiles_total)
+                self._sync_quarantine()
+            else:
+                self.stats.record(hits=self.stats.tiles_total)
         return self._cache
 
     def _sync_quarantine(self) -> None:
@@ -459,18 +463,19 @@ def compress(x, *, eb: float | None = None, abs_eb: float | None = None,
     carries the paper's metrics."""
     device = resolve_device(device)
     sz = SZCompressor(predictor, order, backend, max_levels)
-    if not enhance:
-        if tiled:
-            artifact, _recon = sz.compress_tiled(x, tile, rel_eb=eb, abs_eb=abs_eb,
-                                                 device=device)
-        else:
-            artifact, _recon = sz.compress(x, rel_eb=eb, abs_eb=abs_eb, device=device)
-        return CompressedVolume(artifact, pipeline=GWLZ(sz=sz, clamp_to_bound=clamp_to_bound),
-                                device=device)
-    cfg = enhance if isinstance(enhance, GWLZTrainConfig) else GWLZTrainConfig()
-    gw = GWLZ(sz=sz, train_cfg=cfg, clamp_to_bound=clamp_to_bound)
-    return gw.compress_volume(x, tiled=tiled, tile=tile, rel_eb=eb, abs_eb=abs_eb,
-                              callback=callback, device=device)
+    with obs.op("compress"):
+        if not enhance:
+            if tiled:
+                artifact, _recon = sz.compress_tiled(x, tile, rel_eb=eb, abs_eb=abs_eb,
+                                                     device=device)
+            else:
+                artifact, _recon = sz.compress(x, rel_eb=eb, abs_eb=abs_eb, device=device)
+            return CompressedVolume(
+                artifact, pipeline=GWLZ(sz=sz, clamp_to_bound=clamp_to_bound), device=device)
+        cfg = enhance if isinstance(enhance, GWLZTrainConfig) else GWLZTrainConfig()
+        gw = GWLZ(sz=sz, train_cfg=cfg, clamp_to_bound=clamp_to_bound)
+        return gw.compress_volume(x, tiled=tiled, tile=tile, rel_eb=eb, abs_eb=abs_eb,
+                                  callback=callback, device=device)
 
 
 def compress_stream(source, out, *, eb: float | None = None, abs_eb: float | None = None,
@@ -657,15 +662,16 @@ def from_bytes(blob, *, pipeline: GWLZ | None = None, cache_bytes: int | None = 
     ``tile_cache`` / ``cache_ns`` / ``decode_batcher`` the shared decode
     state, described under :func:`open`."""
     device = resolve_device(device)
-    if A.sniff_magic(blob) == GWDS_MAGIC:
-        return Dataset.from_bytes(blob, pipeline=pipeline, cache_bytes=cache_bytes,
-                                  tile_cache=tile_cache, verify=verify,
-                                  on_corrupt=on_corrupt, fill_value=fill_value,
-                                  device=device)
-    art = _apply_verify(A.from_bytes(blob), verify, on_corrupt, fill_value)
-    return CompressedVolume(art, pipeline=pipeline, cache_bytes=cache_bytes,
-                            tile_cache=tile_cache, cache_ns=cache_ns,
-                            decode_batcher=decode_batcher, device=device)
+    with obs.op("open"):
+        if A.sniff_magic(blob) == GWDS_MAGIC:
+            return Dataset.from_bytes(blob, pipeline=pipeline, cache_bytes=cache_bytes,
+                                      tile_cache=tile_cache, verify=verify,
+                                      on_corrupt=on_corrupt, fill_value=fill_value,
+                                      device=device)
+        art = _apply_verify(A.from_bytes(blob), verify, on_corrupt, fill_value)
+        return CompressedVolume(art, pipeline=pipeline, cache_bytes=cache_bytes,
+                                tile_cache=tile_cache, cache_ns=cache_ns,
+                                decode_batcher=decode_batcher, device=device)
 
 
 def save(path: str | os.PathLike, obj) -> int:

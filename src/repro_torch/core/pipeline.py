@@ -17,14 +17,15 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import metrics
 from repro_torch.core.enhancer import PARAM_NAMES, GroupEnhancers
 from repro_torch.core.trainer import (
     GWLZModel,
     GWLZTrainConfig,
-    clock,
     enhance,
     enhance_tiles,
+    phase,
     train_enhancers,
     train_enhancers_tiled,
 )
@@ -154,23 +155,24 @@ class GWLZ:
         sz_bytes = artifact.nbytes
         model, history = train_fn()
         artifact.extras["gwlz"] = serialize_model(model)
-        t = clock(device)
-        enhanced = enhance_fn(model)
-        seconds = {**seconds, **history["seconds"], "enhance": clock(device) - t}
+        seconds = {**seconds, **history["seconds"]}
+        with phase(seconds, "enhance", device):
+            enhanced = enhance_fn(model)
         total_bytes = artifact.nbytes
-        stats = GWLZStats(
-            psnr_sz=float(metrics.psnr(x, recon)),
-            psnr_gwlz=float(metrics.psnr(x, enhanced)),
-            cr_sz=float(4 * x.numel() / sz_bytes),
-            cr_gwlz=float(4 * x.numel() / total_bytes),
-            overhead=float((total_bytes - sz_bytes) / sz_bytes),
-            max_err_sz=float(metrics.max_abs_err(x, recon)),
-            max_err_gwlz=float(metrics.max_abs_err(x, enhanced)),
-            eb_abs=artifact.eb_abs,
-            n_model_params=model.n_params,
-            loss_history=history["loss"],
-            seconds=seconds,
-        )
+        with obs.span("gwlz.stats"):  # each reduction waits for the device
+            stats = GWLZStats(
+                psnr_sz=float(metrics.psnr(x, recon)),
+                psnr_gwlz=float(metrics.psnr(x, enhanced)),
+                cr_sz=float(4 * x.numel() / sz_bytes),
+                cr_gwlz=float(4 * x.numel() / total_bytes),
+                overhead=float((total_bytes - sz_bytes) / sz_bytes),
+                max_err_sz=float(metrics.max_abs_err(x, recon)),
+                max_err_gwlz=float(metrics.max_abs_err(x, enhanced)),
+                eb_abs=artifact.eb_abs,
+                n_model_params=model.n_params,
+                loss_history=history["loss"],
+                seconds=seconds,
+            )
         return artifact, stats
 
     def compress(self, x, *, rel_eb: float | None = None, abs_eb: float | None = None,
@@ -180,17 +182,17 @@ class GWLZ:
         the decoder's own output).  Returns (SZCompressed, GWLZStats)."""
         device = resolve_device(device)
         x = torch.as_tensor(x, dtype=torch.float32).to(device)
-        t0 = clock(device)
-        artifact, recon = self.sz.compress(x, rel_eb=rel_eb, abs_eb=abs_eb, device=device)
-        artifact.to_bytes()  # the serialization (cached) belongs to the sz phase
-        t1 = clock(device)
+        seconds: dict = {}
+        with phase(seconds, "sz", device):
+            artifact, recon = self.sz.compress(x, rel_eb=rel_eb, abs_eb=abs_eb, device=device)
+            artifact.to_bytes()  # the serialization (cached) belongs to the sz phase
         return self._finish_compress(
             x, artifact, recon,
             train_fn=lambda: train_enhancers(recon, x - recon, self.train_cfg,
                                              callback=callback, device=device),
             enhance_fn=lambda m: enhance(recon, m, clamp_eb=self._clamp(artifact),
                                          device=device),
-            seconds={"sz": t1 - t0}, device=device)
+            seconds=seconds, device=device)
 
     def compress_tiled(self, x, tile=(64, 64, 64), *, rel_eb: float | None = None,
                        abs_eb: float | None = None, predictor: str | None = None,
@@ -203,16 +205,17 @@ class GWLZ:
         x = torch.as_tensor(x, dtype=torch.float32).to(device)
         if x.ndim != 3:
             raise ValueError("tiled GWLZ needs a 3D volume (enhancers are 2D CNNs)")
-        t0 = clock(device)
-        artifact, recon = self.sz.compress_tiled(x, tile, rel_eb=rel_eb, abs_eb=abs_eb,
-                                                 predictor=predictor, device=device)
-        t1 = clock(device)
-        # Train on the decoder's own tiles: the exact arrays decompression
-        # will feed the enhancer.
-        recon_tiles, _ = tiled.decode_lanes(artifact, range(artifact.n_tiles), device=device)
-        resid_tiles = tiled.split_tiles(tiled.pad_to_tiles(x, artifact.tile),
-                                        artifact.tile) - recon_tiles
-        t2 = clock(device)
+        seconds: dict = {}
+        with phase(seconds, "sz", device):
+            artifact, recon = self.sz.compress_tiled(x, tile, rel_eb=rel_eb, abs_eb=abs_eb,
+                                                     predictor=predictor, device=device)
+        with phase(seconds, "decode", device):
+            # Train on the decoder's own tiles: the exact arrays decompression
+            # will feed the enhancer.
+            recon_tiles, _ = tiled.decode_lanes(artifact, range(artifact.n_tiles),
+                                                device=device)
+            resid_tiles = tiled.split_tiles(tiled.pad_to_tiles(x, artifact.tile),
+                                            artifact.tile) - recon_tiles
 
         def enhance_fn(model):
             out = enhance_tiles(recon_tiles, model, clamp_eb=self._clamp(artifact))
@@ -222,7 +225,7 @@ class GWLZ:
             x, artifact, recon,
             train_fn=lambda: train_enhancers_tiled(recon_tiles, resid_tiles, self.train_cfg,
                                                    callback=callback, device=device),
-            enhance_fn=enhance_fn, seconds={"sz": t1 - t0, "decode": t2 - t1}, device=device)
+            enhance_fn=enhance_fn, seconds=seconds, device=device)
 
     # -- canonical container-agnostic entry points -----------------------------
 
@@ -257,7 +260,12 @@ class GWLZ:
             return None
         model = _deserialize_model_cached(blob, device)
         clamp = self._clamp(artifact)
-        return lambda tiles: enhance_tiles(tiles, model, clamp_eb=clamp)
+
+        def transform(tiles):
+            with obs.span("gwlz.enhance_tiles", tiles=tiles.shape[0]):
+                return enhance_tiles(tiles, model, clamp_eb=clamp)
+
+        return transform
 
     def decode(self, artifact, roi=None, *, device=None) -> torch.Tensor:
         """Container-agnostic decode, enhanced when a model is attached: the

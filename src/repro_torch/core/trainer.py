@@ -18,11 +18,13 @@ so both packages see the same batches; the He-normal init comes from a
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import grouping
 from repro_torch.core.enhancer import GroupEnhancers, fp32_convs, hidden
 from repro_torch.kernels import enhancer_fused, ops
@@ -97,6 +99,18 @@ def clock(device: torch.device) -> float:
     return time.perf_counter()
 
 
+@contextmanager
+def phase(seconds: dict, name: str, device: torch.device):
+    """Time one GWLZ phase: the device's queued work is waited for and the
+    host clock read at both ends (:func:`clock`); the seconds go to
+    ``seconds[name]`` and, from the same two reads, to the span
+    ``gwlz.<name>`` (``obs``).  Yields the timer: its ``set`` adds the
+    span's attributes."""
+    with obs.timed("gwlz." + name, lambda: clock(device)) as t:
+        yield t
+    seconds[name] = t.seconds
+
+
 def _as_slices(x: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.movedim(x, axis, 0).contiguous()
 
@@ -154,60 +168,64 @@ def train_enhancers(xprime, residual, cfg: GWLZTrainConfig = GWLZTrainConfig(), 
     per-group training loss (one host sync per epoch), history["seconds"]
     the time of each phase (edges, train, calibrate, gate)."""
     device = resolve_device(device)
-    t = [clock(device)]
+    seconds: dict = {}
     G = cfg.n_groups
-    xs = _as_slices(torch.as_tensor(xprime, dtype=torch.float32).to(device), cfg.slice_axis)
-    rs = _as_slices(torch.as_tensor(residual, dtype=torch.float32).to(device), cfg.slice_axis)
-    n_slices = xs.shape[0]
+    with phase(seconds, "edges", device):
+        xs = _as_slices(torch.as_tensor(xprime, dtype=torch.float32).to(device), cfg.slice_axis)
+        rs = _as_slices(torch.as_tensor(residual, dtype=torch.float32).to(device),
+                        cfg.slice_axis)
+        n_slices = xs.shape[0]
 
-    edges = grouping.compute_edges(xs, G, cfg.strategy)
-    ids, counts = ops.group_hist_op(xs, edges)
-    rscale = _per_group_scale(rs, ids, G)
-    rscale = torch.where(counts >= cfg.min_group_pixels, rscale, 0.0)
-    t.append(clock(device))
+        edges = grouping.compute_edges(xs, G, cfg.strategy)
+        ids, counts = ops.group_hist_op(xs, edges)
+        rscale = _per_group_scale(rs, ids, G)
+        rscale = torch.where(counts >= cfg.min_group_pixels, rscale, 0.0)
 
-    enh = GroupEnhancers(G, cfg.channels, device=device,
-                         generator=torch.Generator().manual_seed(cfg.seed))
-    if params is not None:
-        enh.load(params)
-    adam_cfg = AdamWConfig()
-    opt_state = adamw.init(enh.params(), adam_cfg)
+    with phase(seconds, "train", device) as sp:
+        enh = GroupEnhancers(G, cfg.channels, device=device,
+                             generator=torch.Generator().manual_seed(cfg.seed))
+        if params is not None:
+            enh.load(params)
+        adam_cfg = AdamWConfig()
+        opt_state = adamw.init(enh.params(), adam_cfg)
 
-    bs = min(cfg.batch_size, n_slices)
-    steps_per_epoch = max(n_slices // bs, 1)
-    sched = step_decay(cfg.lr, cfg.lr_decay_factor, cfg.lr_decay_every_epochs * steps_per_epoch)
-    rng = np.random.default_rng(cfg.seed)
-    history = {"loss": np.zeros((cfg.epochs, G), np.float64), "lr": np.zeros(cfg.epochs)}
-    gstep = 0
-    for epoch in range(cfg.epochs):
-        order = torch.from_numpy(rng.permutation(n_slices)).to(device)
-        ep_loss = torch.zeros(G, dtype=torch.float64, device=device)
-        for s in range(steps_per_epoch):
-            idx = order[s * bs : (s + 1) * bs]
-            losses = train_step(enh, opt_state, xs[idx], rs[idx], ids[idx], edges, rscale,
-                                sched(gstep), n_groups=G,
-                                residual_learning=cfg.residual_learning, adam_cfg=adam_cfg)
-            ep_loss += losses.to(torch.float64)
-            gstep += 1
-        history["loss"][epoch] = (ep_loss / steps_per_epoch).cpu().numpy()
-        history["lr"][epoch] = sched(gstep - 1)
-        if callback is not None:
-            callback(epoch, history["loss"][epoch])
-    t.append(clock(device))
-    # exact full-volume BN statistics of the final model: the data we will
-    # enhance is exactly the data we trained on
-    mean, var = _bn_calibrate(enh.params(), xs, ids, edges, n_groups=G)
-    with torch.no_grad():
-        enh.mean.copy_(mean)
-        enh.var.copy_(var)
-    t.append(clock(device))
-    if cfg.gate_groups and cfg.residual_learning:
-        gate = _gate_groups(enh, xs, rs, ids, edges, rscale)
-        rscale = rscale * gate
-        history["gate"] = gate.cpu().numpy()
-    t.append(clock(device))
-    history["seconds"] = dict(zip(("edges", "train", "calibrate", "gate"),
-                                  map(float, np.diff(t))))
+        bs = min(cfg.batch_size, n_slices)
+        steps_per_epoch = max(n_slices // bs, 1)
+        sched = step_decay(cfg.lr, cfg.lr_decay_factor,
+                           cfg.lr_decay_every_epochs * steps_per_epoch)
+        rng = np.random.default_rng(cfg.seed)
+        history = {"loss": np.zeros((cfg.epochs, G), np.float64), "lr": np.zeros(cfg.epochs)}
+        gstep = 0
+        for epoch in range(cfg.epochs):
+            order = torch.from_numpy(rng.permutation(n_slices)).to(device)
+            ep_loss = torch.zeros(G, dtype=torch.float64, device=device)
+            for s in range(steps_per_epoch):
+                idx = order[s * bs : (s + 1) * bs]
+                with obs.span("train.step"):
+                    losses = train_step(enh, opt_state, xs[idx], rs[idx], ids[idx], edges,
+                                        rscale, sched(gstep), n_groups=G,
+                                        residual_learning=cfg.residual_learning,
+                                        adam_cfg=adam_cfg)
+                ep_loss += losses.to(torch.float64)
+                gstep += 1
+            history["loss"][epoch] = (ep_loss / steps_per_epoch).cpu().numpy()
+            history["lr"][epoch] = sched(gstep - 1)
+            if callback is not None:
+                callback(epoch, history["loss"][epoch])
+        sp.set(steps=gstep, epochs=cfg.epochs)
+    with phase(seconds, "calibrate", device):
+        # exact full-volume BN statistics of the final model: the data we will
+        # enhance is exactly the data we trained on
+        mean, var = _bn_calibrate(enh.params(), xs, ids, edges, n_groups=G)
+        with torch.no_grad():
+            enh.mean.copy_(mean)
+            enh.var.copy_(var)
+    with phase(seconds, "gate", device):
+        if cfg.gate_groups and cfg.residual_learning:
+            gate = _gate_groups(enh, xs, rs, ids, edges, rscale)
+            rscale = rscale * gate
+            history["gate"] = gate.cpu().numpy()
+    history["seconds"] = seconds
     return GWLZModel(enhancers=enh, edges=edges, rscale=rscale, cfg=cfg), history
 
 

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.errors import CorruptContainerError
 from repro_torch.kernels import ops
 from repro_torch.kernels.huffman_encode import MAX_CHUNK
@@ -310,11 +311,13 @@ class HuffmanCodec:
         """Pack on ``flat``'s device: returns (stream bytes, chunk_bits int64,
         total bits)."""
         self._check_lengths()
-        words, chunk_bits = ops.huffman_encode_op(*self._pack_inputs(flat, chunk_size))
-        bits = chunk_bits.cpu().numpy().astype(np.int64)
-        used = -(-int(bits.max()) // 32)  # words past the widest chunk are zero
-        local = words[:, :used].contiguous().cpu().numpy().view(np.uint32)
-        stream, total = _splice_chunks(local, bits)
+        with obs.span("entropy.pack"):
+            words, chunk_bits = ops.huffman_encode_op(*self._pack_inputs(flat, chunk_size))
+            bits = chunk_bits.cpu().numpy().astype(np.int64)
+            used = -(-int(bits.max()) // 32)  # words past the widest chunk are zero
+            local = words[:, :used].contiguous().cpu().numpy().view(np.uint32)
+        with obs.span("entropy.splice"):
+            stream, total = _splice_chunks(local, bits)
         return stream, bits, total
 
     # -- decode tables ----------------------------------------------------------
@@ -409,6 +412,7 @@ class HuffmanCodec:
         return got
 
     # -- decode -------------------------------------------------------------------
+    @obs.spanned("lane.decode")
     def decode_chunked_device(self, stream: bytes, n_symbols: int, chunk_size: int,
                               chunk_bits: np.ndarray, *, total_bits: int | None,
                               device: torch.device, chunk_range=None) -> torch.Tensor:
@@ -581,37 +585,46 @@ def encode_codes_lanes(codes: torch.Tensor, backend: str = "huffman+zlib", *,
     ``_device_pack``), on the same device.  Either way the per-symbol work
     stays on the device and the bytes are the same."""
     L, n = codes.shape[0], math.prod(codes.shape[1:])
-    flat = codes.reshape(L, n).to(torch.int32)
-    if backend == "zlib":
-        host = flat.cpu().numpy()
-        return [_zlib_blob(host[i]) for i in range(L)]
-    if backend not in ("huffman", "huffman+zlib"):
-        raise ValueError(f"unknown entropy backend {backend!r}")
-    cs = int(chunk_size) if chunk_size else DEFAULT_CHUNK
-    if not 0 < cs <= MAX_CHUNK:
-        raise ValueError(f"chunk size {cs} outside 1..{MAX_CHUNK} (one chunk's "
-                         "words must fit the encode kernel's shared memory)")
-    if L == 0 or n == 0:
-        empty = HuffmanCodec(np.zeros(0, np.int32), np.zeros(0, np.int64),
-                             np.zeros(0, np.uint64))
-        return [_huffman_blob(empty, 0, cs, np.zeros(0, np.int64), b"", 0, backend)] * L
-    lo, hi = torch.aminmax(flat, dim=1)
-    lo_h, hi_h = torch.stack([lo, hi]).cpu().numpy().astype(np.int64)
-    span = hi_h - lo_h + 1
-    blobs: list[bytes] = [b""] * L
-    for i in np.flatnonzero(span > _LANES_SPAN):
-        codec = HuffmanCodec.fit(flat[i])
-        stream, chunk_bits, total = codec._device_pack(flat[i], cs)
-        blobs[i] = _huffman_blob(codec, n, cs, chunk_bits, stream, total, backend)
-    batch = np.flatnonzero(span <= _LANES_SPAN)
-    if batch.size:
-        if batch.size < L:
-            keep = torch.from_numpy(batch).to(flat.device)
-            flat, lo = flat[keep], lo[keep]
-        for i, blob in zip(batch, _encode_lanes_batched(flat, lo, lo_h[batch], span[batch],
-                                                        cs, backend)):
-            blobs[i] = blob
-    return blobs
+    with obs.span("entropy.encode", lanes=L) as sp:
+        flat = codes.reshape(L, n).to(torch.int32)
+        if backend == "zlib":
+            host = flat.cpu().numpy()
+            blobs = []
+            for i in range(L):
+                with obs.span("entropy.deflate"):
+                    blobs.append(_zlib_blob(host[i]))
+            return blobs
+        if backend not in ("huffman", "huffman+zlib"):
+            raise ValueError(f"unknown entropy backend {backend!r}")
+        cs = int(chunk_size) if chunk_size else DEFAULT_CHUNK
+        if not 0 < cs <= MAX_CHUNK:
+            raise ValueError(f"chunk size {cs} outside 1..{MAX_CHUNK} (one chunk's "
+                             "words must fit the encode kernel's shared memory)")
+        if L == 0 or n == 0:
+            empty = HuffmanCodec(np.zeros(0, np.int32), np.zeros(0, np.int64),
+                                 np.zeros(0, np.uint64))
+            return [_huffman_blob(empty, 0, cs, np.zeros(0, np.int64), b"", 0, backend)] * L
+        with obs.span("entropy.fit"):
+            lo, hi = torch.aminmax(flat, dim=1)
+            lo_h, hi_h = torch.stack([lo, hi]).cpu().numpy().astype(np.int64)
+        span = hi_h - lo_h + 1
+        blobs: list[bytes] = [b""] * L
+        for i in np.flatnonzero(span > _LANES_SPAN):
+            with obs.span("entropy.fit"):
+                codec = HuffmanCodec.fit(flat[i])
+            stream, chunk_bits, total = codec._device_pack(flat[i], cs)
+            with obs.span("entropy.deflate"):
+                blobs[i] = _huffman_blob(codec, n, cs, chunk_bits, stream, total, backend)
+        batch = np.flatnonzero(span <= _LANES_SPAN)
+        sp.set(batched=int(batch.size))
+        if batch.size:
+            if batch.size < L:
+                keep = torch.from_numpy(batch).to(flat.device)
+                flat, lo = flat[keep], lo[keep]
+            for i, blob in zip(batch, _encode_lanes_batched(flat, lo, lo_h[batch], span[batch],
+                                                            cs, backend)):
+                blobs[i] = blob
+        return blobs
 
 
 def _encode_lanes_batched(flat: torch.Tensor, lo: torch.Tensor, lo_h: np.ndarray,
@@ -622,17 +635,21 @@ def _encode_lanes_batched(flat: torch.Tensor, lo: torch.Tensor, lo_h: np.ndarray
     one copy back of the chunk bits and one of the words up to the widest
     chunk, then per lane on the host the splice, framing and zlib."""
     L, n = flat.shape
-    codecs, lens, cws = _lanes_pack_inputs(flat, lo, lo_h, span, cs)
-    words, chunk_bits = ops.huffman_encode_op(lens, cws)
-    del lens, cws
-    C = -(-n // cs)
-    bits = chunk_bits.cpu().numpy().astype(np.int64).reshape(L, C)
-    used = -(-int(bits.max()) // 32)  # words past the widest chunk are zero
-    local = words[:, :used].contiguous().cpu().numpy().view(np.uint32).reshape(L, C, used)
+    with obs.span("entropy.fit"):
+        codecs, lens, cws = _lanes_pack_inputs(flat, lo, lo_h, span, cs)
+    with obs.span("entropy.pack"):
+        words, chunk_bits = ops.huffman_encode_op(lens, cws)
+        del lens, cws
+        C = -(-n // cs)
+        bits = chunk_bits.cpu().numpy().astype(np.int64).reshape(L, C)
+        used = -(-int(bits.max()) // 32)  # words past the widest chunk are zero
+        local = words[:, :used].contiguous().cpu().numpy().view(np.uint32).reshape(L, C, used)
     blobs = []
     for i in range(L):
-        stream, total = _splice_chunks(local[i, :, : -(-int(bits[i].max()) // 32)], bits[i])
-        blobs.append(_huffman_blob(codecs[i], n, cs, bits[i], stream, total, backend))
+        with obs.span("entropy.splice"):
+            stream, total = _splice_chunks(local[i, :, : -(-int(bits[i].max()) // 32)], bits[i])
+        with obs.span("entropy.deflate"):
+            blobs.append(_huffman_blob(codecs[i], n, cs, bits[i], stream, total, backend))
     return blobs
 
 
@@ -707,32 +724,40 @@ _CODEC_CACHE: dict[bytes, HuffmanCodec] = {}
 _CODEC_LOCK = threading.Lock()
 
 
-def _cached_codec(table: bytes) -> HuffmanCodec:
+def _cached_codec(table: bytes, device=None) -> HuffmanCodec:
     """Decode-side codec cache: repeated decodes of one artifact skip the
-    canonical-table, LUT and device-table rebuilds."""
-    with _CODEC_LOCK:
-        codec = _CODEC_CACHE.get(table)
-    if codec is None:
-        codec, _ = HuffmanCodec.from_table(table)
+    canonical-table, LUT and device-table rebuilds.  A miss with a
+    ``device`` builds the decode tables there at once (span ``lane.tables``,
+    attribute ``hit``)."""
+    with obs.span("lane.tables") as sp:
         with _CODEC_LOCK:
-            if len(_CODEC_CACHE) >= 16:
-                _CODEC_CACHE.pop(next(iter(_CODEC_CACHE)))
-            _CODEC_CACHE[table] = codec
+            codec = _CODEC_CACHE.get(table)
+        sp.set(hit=codec is not None)
+        if codec is None:
+            codec, _ = HuffmanCodec.from_table(table)
+            if device is not None and codec.alphabet.size:
+                codec._tables_on(device)
+            with _CODEC_LOCK:
+                if len(_CODEC_CACHE) >= 16:
+                    _CODEC_CACHE.pop(next(iter(_CODEC_CACHE)))
+                _CODEC_CACHE[table] = codec
     return codec
 
 
-def parse_chunked(blob):
+def parse_chunked(blob, device=None):
     """Split an ``hc``/``hZ`` blob: (codec, n symbols, chunk size, chunk_bits,
-    stream bytes, total bits)."""
+    stream bytes, total bits); a codec missing from the cache is built with
+    its decode tables on ``device`` when one is given."""
     n, cs, n_chunks, tlen = struct.unpack_from("<QIII", blob, 6)
     off = 6 + 20
-    codec = _cached_codec(bytes(blob[off : off + tlen]))
+    codec = _cached_codec(bytes(blob[off : off + tlen]), device)
     off += tlen
     (total,) = struct.unpack_from("<Q", blob, off)
     off += 8
     payload = blob[off:]
     if bytes(blob[4:6]) == b"hZ":
-        payload = zlib.decompress(payload)
+        with obs.span("lane.inflate"):
+            payload = zlib.decompress(payload)
     cb_dtype = _chunk_bits_dtype(cs)
     chunk_bits = np.frombuffer(payload, cb_dtype, n_chunks)
     stream = bytes(payload[np.dtype(cb_dtype).itemsize * n_chunks :])
@@ -769,22 +794,24 @@ def decode_codes(blob: bytes, shape: tuple[int, ...], *, device) -> torch.Tensor
     device = torch.device(device)
     tag = bytes(blob[4:6])
     if tag in (b"z2", b"z4"):
-        raw = zlib.decompress(blob[14:])
+        with obs.span("lane.inflate"):
+            raw = zlib.decompress(blob[14:])
         dt = np.int16 if tag == b"z2" else np.int32
         out = torch.from_numpy(np.frombuffer(raw, dt).astype(np.int32))
         return out.to(device).reshape(shape)
     if tag in (b"hc", b"hZ"):
-        codec, n, cs, chunk_bits, stream, total = parse_chunked(blob)
+        codec, n, cs, chunk_bits, stream, total = parse_chunked(blob, device)
         out = codec.decode_chunked_device(stream, n, cs, chunk_bits,
                                           total_bits=total, device=device)
         return out.reshape(shape)
     if tag in (b"hf", b"hz"):
         n, tlen = struct.unpack_from("<QI", blob, 6)
         off = 6 + 12
-        codec = _cached_codec(bytes(blob[off : off + tlen]))
+        codec = _cached_codec(bytes(blob[off : off + tlen]), device)
         body = blob[off + tlen :]
         if tag == b"hz":
-            body = zlib.decompress(body)
+            with obs.span("lane.inflate"):
+                body = zlib.decompress(body)
         return codec.decode_bitwalk(body, n, device=device).reshape(shape)
     raise ValueError(f"unknown entropy tag {tag!r}")
 
@@ -806,7 +833,7 @@ def decode_codes_range(blob: bytes, lo: int, hi: int, *, device) -> torch.Tensor
             raise ValueError(f"symbol range [{lo}, {hi}) outside [0, {n})")
         if lo == hi:
             return torch.zeros(0, dtype=torch.int32, device=device)
-        codec, n, cs, chunk_bits, stream, total = parse_chunked(blob)
+        codec, n, cs, chunk_bits, stream, total = parse_chunked(blob, device)
         c0, c1 = lo // cs, -(-hi // cs)
         out = codec.decode_chunked_device(stream, n, cs, chunk_bits, total_bits=total,
                                           device=device, chunk_range=(c0, c1))

@@ -50,6 +50,7 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.errors import CorruptContainerError
 from repro_torch.kernels.ref import two_eb_tensor
 from repro_torch.sz.quantizer import dequantize_pre, quantize_residual
@@ -361,6 +362,7 @@ class _LorenzoTiles(TilePredictor):
 
         return entropy.encode_codes_lanes(payload["codes"][:n], backend)
 
+    @obs.spanned("lane.parse")
     def parse_lane(self, blob, *, tile, levels, device):
         from repro_torch.sz import entropy
 
@@ -427,13 +429,15 @@ class _InterpTiles(TilePredictor):
         return [_interp_lane(nz[a:b, 1], val[a:b], blob)
                 for a, b, blob in zip(cuts[:-1], cuts[1:], blobs)]
 
+    @obs.spanned("lane.parse")
     def parse_lane(self, blob, *, tile, levels, device):
         from repro_torch.sz import entropy
 
         pshape = _padded_shape(tile, levels)
         n_out, zlen = _INTERP_LANE_HDR.unpack_from(blob, 0)
         off = _INTERP_LANE_HDR.size
-        raw = zlib.decompress(blob[off : off + zlen])
+        with obs.span("lane.inflate"):
+            raw = zlib.decompress(blob[off : off + zlen])
         idx = np.frombuffer(raw, np.uint32, n_out)
         val = np.frombuffer(raw, np.float32, n_out, offset=4 * n_out)
         omask, ovals = scatter_outliers(idx, val, pshape, device)

@@ -19,8 +19,7 @@ The XLA-oriented ``dispatch_bucketed`` has no counterpart: eager PyTorch
 compiles nothing per batch size, so decode is one batched call.  Its
 process-wide counters stay, for the serving daemon's ``/metrics``:
 :func:`dispatch_stats` counts one dispatch per :func:`decode_lanes` batch,
-with a histogram by batch size; ``programs`` and ``padded_tiles`` keep the
-reference's keys and stay 0.
+with a histogram by batch size.
 """
 from __future__ import annotations
 
@@ -33,6 +32,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.errors import CorruptContainerError, CorruptLaneError
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.sz import artifact as A
@@ -61,7 +61,7 @@ _BACKENDS = {"zlib": 0, "huffman": 1, "huffman+zlib": 2}
 _BACKENDS_INV = {v: k for k, v in _BACKENDS.items()}
 
 _DISPATCH_LOCK = threading.Lock()
-DISPATCH_STATS = {"dispatches": 0, "programs": 0, "padded_tiles": 0, "batch_hist": {}}
+DISPATCH_STATS = {"dispatches": 0, "batch_hist": {}}
 
 
 def _record_dispatch(n: int) -> None:
@@ -72,10 +72,9 @@ def _record_dispatch(n: int) -> None:
 
 
 def dispatch_stats() -> dict:
-    """Snapshot of the process-wide decode counters (the reference's keys):
-    ``dispatches`` (one per :func:`decode_lanes` batch), ``batch_hist``
-    (batch size -> dispatches), and ``programs`` / ``padded_tiles``, always
-    0 here: nothing is compiled or padded per batch size."""
+    """Snapshot of the process-wide decode counters: ``dispatches`` (one per
+    :func:`decode_lanes` batch) and ``batch_hist`` (batch size ->
+    dispatches)."""
     with _DISPATCH_LOCK:
         out = dict(DISPATCH_STATS)
         out["batch_hist"] = dict(DISPATCH_STATS["batch_hist"])
@@ -85,7 +84,7 @@ def dispatch_stats() -> dict:
 def reset_dispatch_stats() -> None:
     """Zero the decode counters."""
     with _DISPATCH_LOCK:
-        DISPATCH_STATS.update(dispatches=0, programs=0, padded_tiles=0, batch_hist={})
+        DISPATCH_STATS.update(dispatches=0, batch_hist={})
 
 
 def lane_crc(data) -> int:
@@ -434,9 +433,11 @@ def compress_tiled(x, tile=(64, 64, 64), *, rel_eb: float | None = None,
     eb = resolve_eb(x, rel_eb, abs_eb)
     levels = pred.plan(tile, max_levels)
     tiles = split_tiles(pad_to_tiles(x, tile), tile)
-    payload, recon_tiles = pred.encode_tiles(tiles, eb, order=order, levels=levels)
+    with obs.span("tiles.encode", tiles=tiles.shape[0]):
+        payload, recon_tiles = pred.encode_tiles(tiles, eb, order=order, levels=levels)
     recon = stitch_tiles(recon_tiles, tile_grid(tuple(x.shape), tile))
-    blobs = pred.lane_bytes_batch(payload, tiles.shape[0], backend)
+    with obs.span("tiles.lanes", tiles=tiles.shape[0]):
+        blobs = pred.lane_bytes_batch(payload, tiles.shape[0], backend)
     artifact = TiledCompressed(
         shape=tuple(x.shape), tile=tile, eb_abs=eb, backend=backend,
         tile_blobs=blobs, predictor=predictor, order=order, levels=levels)
@@ -455,7 +456,8 @@ def _check_lane(artifact: TiledCompressed, i: int, blob) -> bool:
     if artifact.lane_crcs is None or artifact.verify == "none" or i in artifact._verified:
         return True
     expected = int(artifact.lane_crcs[i])
-    actual = lane_crc(blob)
+    with obs.span("lane.crc"):
+        actual = lane_crc(blob)
     if actual == expected:
         artifact._verified.add(i)
         return True
@@ -496,9 +498,10 @@ def decode_lanes(artifact: TiledCompressed, lane_ids, *, with_mask: bool = False
     tile = tuple(artifact.tile)
     recon = None
     if good:
-        payload = {k: torch.stack([it[k] for it in items]) for k in items[0]}
-        recon = pred.decode_tiles(payload, artifact.eb_abs, tile=tile,
-                                  order=artifact.order, levels=artifact.levels)
+        with obs.span("tiles.decode", tiles=len(good)):
+            payload = {k: torch.stack([it[k] for it in items]) for k in items[0]}
+            recon = pred.decode_tiles(payload, artifact.eb_abs, tile=tile,
+                                      order=artifact.order, levels=artifact.levels)
         _record_dispatch(len(good))
     bad_mask = np.ones(len(lane_ids), bool)
     bad_mask[good] = False
@@ -545,8 +548,9 @@ def decompress_tiled(artifact: TiledCompressed, *, device=None,
     recon, _, bad = decode_lanes(artifact, range(artifact.n_tiles), with_mask=True,
                                  device=device)
     recon = apply_tile_transform(tile_transform, recon, bad, artifact.fill_value)
-    out = stitch_tiles(recon, artifact.grid)
-    return out[tuple(slice(0, d) for d in artifact.shape)]
+    with obs.span("tiles.stitch"):
+        out = stitch_tiles(recon, artifact.grid)
+        return out[tuple(slice(0, d) for d in artifact.shape)]
 
 
 def normalize_roi(roi, shape: tuple[int, ...]) -> tuple[tuple[int, int], ...]:

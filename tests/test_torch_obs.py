@@ -1,0 +1,171 @@
+"""The port's span recorder (``repro_torch.obs``): off it reads no clock and
+opens no profiler range; on, spans nest, carry their request's id, land in
+a profiler trace as host events around the torch ops they issue, and time
+the GWLZ phases with the same clock reads as ``GWLZStats.seconds``."""
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api, obs
+from repro_torch.core.trainer import GWLZTrainConfig
+from repro_torch.data import nyx_like_field
+
+CFG = GWLZTrainConfig(n_groups=4, epochs=1)
+TILE = (16, 16, 16)
+PHASES = ("sz", "decode", "edges", "train", "calibrate", "gate", "enhance")
+# every span a tiled compress, to_bytes, open and whole decode records (the
+# names the benchmark's readers and PERF.md's layers use)
+SPANS = {
+    "op.compress", "op.to_bytes", "op.open", "op.decode", "op.to_host",
+    *(f"gwlz.{p}" for p in PHASES), "gwlz.stats", "gwlz.enhance_tiles", "train.step",
+    "tiles.encode", "tiles.lanes", "entropy.encode", "entropy.fit", "entropy.pack",
+    "entropy.splice", "entropy.deflate",
+    "lane.crc", "lane.parse", "lane.inflate", "lane.tables", "lane.decode",
+    "tiles.decode", "tiles.stitch",
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs in parallel workers, where many
+    threads a worker make the small ops here wait on each other."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture
+def recorder():
+    obs.enable()
+    obs.take()
+    yield
+    obs.disable()
+    obs.take()
+
+
+@pytest.fixture(scope="module")
+def field():
+    return nyx_like_field((32, 32, 32), "temperature", seed=11)
+
+
+def _round_trip(x, **kw):
+    vol = api.compress(x, eb=1e-3, tiled=True, tile=TILE, device="cpu", **kw)
+    out = np.asarray(api.from_bytes(vol.to_bytes(), device="cpu"))
+    return vol, out
+
+
+@pytest.fixture(scope="module")
+def gwlz_trip(field):
+    """One GWLZ round trip (Lorenzo) and one interp round trip with the
+    recorder on: their records and the GWLZ handle."""
+    obs.enable()
+    obs.take()
+    try:
+        vol, _ = _round_trip(field, predictor="lorenzo", enhance=CFG)
+        _round_trip(field, predictor="interp")
+        return vol, obs.take()
+    finally:
+        obs.disable()
+
+
+def _raise(*_a, **_k):
+    raise AssertionError("reached with the recorder off")
+
+
+def test_off_path_reads_no_clock_and_opens_no_range(monkeypatch, field):
+    obs.disable()
+    obs.take()
+    monkeypatch.setattr(time, "perf_counter_ns", _raise)
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", _raise)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", _raise)
+    for kw in ({"predictor": "lorenzo", "enhance": CFG}, {"predictor": "interp"}):
+        vol, out = _round_trip(field, **kw)
+        assert np.abs(out - field).max() <= 2 * vol.eb_abs
+    assert obs.take() == []
+
+
+def test_spans_nest_and_carry_their_request(recorder):
+    with obs.op("outer") as root:
+        with obs.span("a", k=1) as a:
+            with obs.span("b"):
+                pass
+            a.set(hit=True)
+        with obs.op("inner"):  # nested: the same request
+            with obs.span("c"):
+                pass
+    with obs.span("loose"):
+        pass
+    recs = {r.name: r for r in obs.take()}
+    assert set(recs) == {"op.outer", "a", "b", "op.inner", "c", "loose"}
+    assert root.id == recs["op.outer"].id and recs["op.outer"].parent == 0
+    assert recs["a"].parent == recs["op.outer"].id and recs["b"].parent == recs["a"].id
+    assert recs["c"].parent == recs["op.inner"].id
+    assert recs["a"].attrs == {"k": 1, "hit": True}
+    o, a, b = recs["op.outer"], recs["a"], recs["b"]
+    assert o.t0_ns <= a.t0_ns <= b.t0_ns <= b.t1_ns <= a.t1_ns <= o.t1_ns
+    ids = {recs[n].op for n in ("op.outer", "a", "b", "op.inner", "c")}
+    assert len(ids) == 1 and ids != {0}
+    assert recs["loose"].op == 0 and recs["loose"].parent == 0
+
+
+def test_two_threads_get_two_requests(recorder):
+    both = threading.Barrier(2, timeout=30)  # alive together: distinct thread ids
+
+    def work():
+        with obs.op("t"):
+            with obs.span("s"):
+                both.wait()
+
+    threads = [threading.Thread(target=work) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    recs = obs.take()
+    assert sorted(r.name for r in recs) == ["op.t", "op.t", "s", "s"]
+    assert len({r.op for r in recs}) == 2 and len({r.thread for r in recs}) == 2
+    for r in recs:
+        if r.name == "s":
+            assert any(p.id == r.parent and p.op == r.op for p in recs)
+    assert obs.take() == []
+
+
+def test_spans_are_profiler_host_events_around_their_ops(recorder, field):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _round_trip(field, predictor="interp")
+    events = [(e.name(), e.start_ns(), e.end_ns(), e.start_thread_id(), e.activity_type())
+              for e in prof.profiler.kineto_results.events()]
+    names = {e[0] for e in events}
+    assert {"op.compress", "entropy.encode", "entropy.fit", "lane.parse", "lane.decode"} <= names
+    # a cpu_op range, not a user annotation: the profiler would mirror an
+    # annotation onto the device timeline as if it were device work
+    assert {e[4] for e in events if e[0] == "entropy.fit"} == {"cpu_op"}
+    for span, op in (("entropy.fit", "aten::aminmax"), ("lane.decode", "aten::index")):
+        outer = [e for e in events if e[0] == span]
+        inner = [e for e in events if e[0] == op]
+        assert any(s[1] <= i[1] and i[2] <= s[2] and s[3] == i[3]
+                   for s in outer for i in inner), (span, op)
+
+
+def test_phase_seconds_are_the_phase_spans(gwlz_trip):
+    vol, recs = gwlz_trip
+    seconds = vol.train_stats.seconds
+    spans = {r.name[5:]: r.seconds for r in recs if r.name.startswith("gwlz.")}
+    assert tuple(seconds) == PHASES
+    assert {k: spans[k] for k in PHASES} == seconds
+
+
+def test_round_trip_emits_every_span(gwlz_trip):
+    _vol, recs = gwlz_trip
+    assert {r.name for r in recs} >= SPANS, SPANS - {r.name for r in recs}
+    enc = [r for r in recs if r.name == "entropy.encode"]
+    assert enc and all(r.attrs == {"lanes": 8, "batched": 8} for r in enc)
+    assert {type(r.attrs.get("hit")) for r in recs if r.name == "lane.tables"} == {bool}
+    assert [r.attrs["steps"] for r in recs if r.name == "gwlz.train"] == [
+        sum(r.name == "train.step" for r in recs)]

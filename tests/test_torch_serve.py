@@ -279,7 +279,7 @@ def test_pool_batcher_and_decode_counters(tmp_path, tiled_vol, full, batch_wait_
     """With a batcher the pool's decodes go through it and /metrics shows
     it; without (``--no-batcher``) the same bytes and no batcher block.
     The decode counters count one dispatch per decode batch, keyed by its
-    size; programs and padded tiles stay 0 (nothing compiled or padded)."""
+    size."""
     pool = _pool({"v": _gwtc_path(tmp_path, tiled_vol)}, batch_wait_ms=batch_wait_ms)
     with pool:
         assert (pool.batcher is None) == (batch_wait_ms is None)
@@ -287,8 +287,7 @@ def test_pool_batcher_and_decode_counters(tmp_path, tiled_vol, full, batch_wait_
         block, meta = pool.region("v", "0:17,0:9,0:8")
         np.testing.assert_array_equal(block, full[0:17, 0:9, 0:8])
         m = pool.metrics_snapshot()
-        assert m["decode"] == {"dispatches": 1, "programs": 0, "padded_tiles": 0,
-                               "batch_hist": {"6": 1}}
+        assert m["decode"] == {"dispatches": 1, "batch_hist": {"6": 1}}
         if batch_wait_ms is None:
             assert "batcher" not in m
         else:
