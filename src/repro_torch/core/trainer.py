@@ -14,9 +14,18 @@ epochs, Adam lr 1e-3 with a step decay every 30 epochs.  The slice order
 comes from ``np.random.default_rng(cfg.seed)`` exactly as in the reference,
 so both packages see the same batches; the He-normal init comes from a
 ``torch.Generator`` (tests inject the reference's draw).
+
+On a card, :func:`train_enhancers` captures its training step once as a
+CUDA graph and replays it for every step (:class:`_CapturedStep`): the
+step is ~200 small kernels, and issued one by one from the host they leave
+the device idle most of the time.  The replay runs the same kernels on the
+same values; every other caller of :func:`train_step` runs it eagerly.
 """
 from __future__ import annotations
 
+import contextvars
+import copy
+import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
@@ -135,7 +144,24 @@ def train_step(enh: GroupEnhancers, opt_state: dict, xb, rb, idsb, edges, rscale
                adam_cfg: AdamWConfig = AdamWConfig()) -> torch.Tensor:
     """One AdamW step for all G models at once (``enh`` and ``opt_state`` are
     updated in place).  Returns the per-group losses [G] of the active
-    groups (0 for the others), on the device, without a host sync."""
+    groups (0 for the others), on the device, without a host sync.
+
+    Inside :func:`train_enhancers`' loop on a card, a call with that loop's
+    own ``enh`` and ``opt_state`` replays the loop's captured step; any
+    other call runs the step eagerly."""
+    captured = _CAPTURED.get()
+    if captured is not None and captured.serves(enh, opt_state, xb, rb, idsb, edges, rscale,
+                                                n_groups, residual_learning, adam_cfg):
+        return captured.step(xb, rb, idsb, lr)
+    return _step(enh, opt_state, xb, rb, idsb, edges, rscale, lr, n_groups=n_groups,
+                 residual_learning=residual_learning, adam_cfg=adam_cfg)
+
+
+def _step(enh: GroupEnhancers, opt_state: dict, xb, rb, idsb, edges, rscale, lr, *,
+          n_groups: int, residual_learning: bool, adam_cfg: AdamWConfig,
+          corrections=None) -> torch.Tensor:
+    """The step's work (:func:`train_step`); ``lr`` and ``corrections`` as
+    ``adamw.update`` takes them."""
     xn, masks = _group_inputs(xb, idsb, edges, n_groups)
     if residual_learning:
         safe = torch.where(rscale > 0, rscale, 1.0)
@@ -152,11 +178,112 @@ def train_step(enh: GroupEnhancers, opt_state: dict, xb, rb, idsb, edges, rscale
         losses = (se.sum(dim=(1, 2, 3)) / torch.clamp(masks.sum(dim=(1, 2, 3)), min=1.0)
                   * active)
         grads = torch.autograd.grad(losses.sum(), list(params.values()))
-    adamw.update(params, opt_state, dict(zip(params, grads)), lr, adam_cfg)
+    adamw.update(params, opt_state, dict(zip(params, grads)), lr, adam_cfg,
+                 corrections=corrections)
     with torch.no_grad():
         enh.mean.copy_(new_state["mean"])
         enh.var.copy_(new_state["var"])
     return losses.detach()
+
+
+# the captured step of the training loop running in this thread, if any
+_CAPTURED: contextvars.ContextVar["_CapturedStep | None"] = contextvars.ContextVar(
+    "gwlz_captured_step", default=None)
+_WARMUP_STEPS = 1  # cuDNN plans and autograd state are made on the first call
+_SIDE = threading.local()
+
+
+def _side_stream(dev: torch.device) -> torch.cuda.Stream:
+    """This thread's side stream on ``dev`` for warm-ups and captures.  One
+    a thread: the caching allocator keeps freed blocks by stream, so each
+    warm-up reuses the last one's blocks, and no two threads capture on one
+    stream."""
+    streams = _SIDE.__dict__.setdefault("streams", {})
+    if dev not in streams:
+        streams[dev] = torch.cuda.Stream(dev)
+    return streams[dev]
+
+
+class _CapturedStep:
+    """One training step of :func:`train_enhancers`' loop as a CUDA graph,
+    captured against the loop's own ``enh`` and ``opt_state`` and replayed
+    once a step.
+
+    What changes from step to step goes in through static device tensors:
+    the batch is copied into static buffers, and the learning rate and
+    Adam's two bias corrections (computed on the host as the eager step
+    computes them) are filled into 0-d float32 tensors.  So a replay runs
+    the eager step's kernels on the eager step's values; the host int
+    ``opt_state["step"]`` counts up one a replay.  The warm-up (cuDNN's
+    plans, the autograd engine's device thread) runs on throwaway clones,
+    on the capture stream, through :func:`_step`: a wrapper of the
+    module-level :func:`train_step` sees only the loop's calls."""
+
+    def __init__(self, enh: GroupEnhancers, opt_state: dict, xb, rb, idsb, edges, rscale, *,
+                 n_groups: int, residual_learning: bool, adam_cfg: AdamWConfig):
+        dev = xb.device
+        self.enh, self.opt_state = enh, opt_state
+        self.moments = (opt_state["m"], opt_state["v"])
+        self.fixed = (edges, rscale)
+        self.cfg = (n_groups, residual_learning, adam_cfg)
+        self.batch = tuple(t.clone() for t in (xb, rb, idsb))
+        self.scalars = tuple(torch.zeros((), dtype=torch.float32, device=dev) for _ in range(3))
+        self.filled: list = [None] * 3  # the values in self.scalars
+        self.replays = 0
+        kw = dict(n_groups=n_groups, residual_learning=residual_learning, adam_cfg=adam_cfg,
+                  corrections=self.scalars[1:])
+        self._fill(0.0, 1)
+        twin = copy.deepcopy(enh)
+        twin_state = {"step": 0, **{k: {n: t.clone() for n, t in opt_state[k].items()}
+                                    for k in ("m", "v")}}
+        stream = _side_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for _ in range(_WARMUP_STEPS):
+                _step(twin, twin_state, *self.batch, *self.fixed, self.scalars[0], **kw)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        del twin, twin_state
+        self.graph = torch.cuda.CUDAGraph()
+        # not torch.cuda.graph, whose device sync and empty_cache would make
+        # the rest of the op allocate anew; thread_local: other threads of
+        # the process may use the card meanwhile
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.losses = _step(enh, opt_state, *self.batch, *self.fixed, self.scalars[0],
+                                    **kw)
+            finally:
+                self.graph.capture_end()
+
+    def serves(self, enh, opt_state, xb, rb, idsb, edges, rscale, n_groups, residual_learning,
+               adam_cfg) -> bool:
+        """Whether a :func:`train_step` call is the loop's own step."""
+        return (enh is self.enh and opt_state is self.opt_state
+                and opt_state["m"] is self.moments[0] and opt_state["v"] is self.moments[1]
+                and edges is self.fixed[0] and rscale is self.fixed[1]
+                and (n_groups, residual_learning, adam_cfg) == self.cfg
+                and all(a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+                        for a, b in zip((xb, rb, idsb), self.batch)))
+
+    def _fill(self, lr: float, step: int) -> None:
+        for i, v in enumerate((lr, *adamw.bias_corrections(step, self.cfg[2]))):
+            if self.filled[i] != v:
+                self.scalars[i].fill_(v)
+                self.filled[i] = v
+
+    def step(self, xb, rb, idsb, lr: float) -> torch.Tensor:
+        for dst, src in zip(self.batch, (xb, rb, idsb)):
+            dst.copy_(src)
+        self.opt_state["step"] = int(self.opt_state["step"]) + 1
+        self._fill(lr, self.opt_state["step"])
+        self.graph.replay()
+        self.replays += 1
+        return self.losses.clone()
+
+    def close(self) -> None:
+        """Drop the graph and its private memory pool."""
+        self.graph.reset()
+        self.graph = self.losses = self.batch = None
 
 
 def train_enhancers(xprime, residual, cfg: GWLZTrainConfig = GWLZTrainConfig(), *,
@@ -195,23 +322,35 @@ def train_enhancers(xprime, residual, cfg: GWLZTrainConfig = GWLZTrainConfig(), 
                            cfg.lr_decay_every_epochs * steps_per_epoch)
         rng = np.random.default_rng(cfg.seed)
         history = {"loss": np.zeros((cfg.epochs, G), np.float64), "lr": np.zeros(cfg.epochs)}
+        step_kw = dict(n_groups=G, residual_learning=cfg.residual_learning, adam_cfg=adam_cfg)
+        captured = None
+        if device.type == "cuda" and cfg.epochs > 0:
+            captured = _CapturedStep(enh, opt_state, xs[:bs], rs[:bs], ids[:bs], edges, rscale,
+                                     **step_kw)
+        token = _CAPTURED.set(captured)
         gstep = 0
-        for epoch in range(cfg.epochs):
-            order = torch.from_numpy(rng.permutation(n_slices)).to(device)
-            ep_loss = torch.zeros(G, dtype=torch.float64, device=device)
-            for s in range(steps_per_epoch):
-                idx = order[s * bs : (s + 1) * bs]
-                with obs.span("train.step"):
-                    losses = train_step(enh, opt_state, xs[idx], rs[idx], ids[idx], edges,
-                                        rscale, sched(gstep), n_groups=G,
-                                        residual_learning=cfg.residual_learning,
-                                        adam_cfg=adam_cfg)
-                ep_loss += losses.to(torch.float64)
-                gstep += 1
-            history["loss"][epoch] = (ep_loss / steps_per_epoch).cpu().numpy()
-            history["lr"][epoch] = sched(gstep - 1)
-            if callback is not None:
-                callback(epoch, history["loss"][epoch])
+        try:
+            for epoch in range(cfg.epochs):
+                order = torch.from_numpy(rng.permutation(n_slices)).to(device)
+                ep_loss = torch.zeros(G, dtype=torch.float64, device=device)
+                for s in range(steps_per_epoch):
+                    idx = order[s * bs : (s + 1) * bs]
+                    with obs.span("train.step") as tsp:
+                        replays = captured.replays if captured is not None else 0
+                        losses = train_step(enh, opt_state, xs[idx], rs[idx], ids[idx], edges,
+                                            rscale, sched(gstep), **step_kw)
+                        if captured is not None and captured.replays > replays:
+                            tsp.set(graph=1)
+                    ep_loss += losses.to(torch.float64)
+                    gstep += 1
+                history["loss"][epoch] = (ep_loss / steps_per_epoch).cpu().numpy()
+                history["lr"][epoch] = sched(gstep - 1)
+                if callback is not None:
+                    callback(epoch, history["loss"][epoch])
+        finally:
+            _CAPTURED.reset(token)
+            if captured is not None:
+                captured.close()
         sp.set(steps=gstep, epochs=cfg.epochs)
     with phase(seconds, "calibrate", device):
         # exact full-volume BN statistics of the final model: the data we will

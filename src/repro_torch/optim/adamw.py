@@ -84,23 +84,39 @@ def _load(x, dtype: str) -> torch.Tensor:
     return x.to(torch.float32)
 
 
+def bias_corrections(step: int, cfg: AdamWConfig = AdamWConfig()) -> tuple[float, float]:
+    """``1 - b1 ** step`` and ``1 - b2 ** step`` in float32, as floats."""
+    s = torch.tensor(float(step), dtype=torch.float32)
+    return tuple(float(1.0 - torch.pow(torch.tensor(b, dtype=torch.float32), s))
+                 for b in (cfg.b1, cfg.b2))
+
+
 @torch.no_grad()
-def update(params, state: dict, grads, lr: float, cfg: AdamWConfig = AdamWConfig(),
-           rng=None) -> None:
+def update(params, state: dict, grads, lr: float | torch.Tensor,
+           cfg: AdamWConfig = AdamWConfig(), rng=None, *,
+           corrections: tuple[torch.Tensor, torch.Tensor] | None = None) -> None:
     """One AdamW step on every leaf of ``params`` (in place, as is
     ``state``).  ``grads`` has ``params``' structure; ``rng`` seeds the int8
-    mode's stochastic rounding (default: the key ``[0, 0]``)."""
+    mode's stochastic rounding (default: the key ``[0, 0]``).
+
+    ``corrections``: the two bias corrections as 0-d float32 tensors on the
+    parameters' device, with ``lr`` one as well (fp32 moments only).  The
+    step then reads all three when it runs, not when it is queued, and
+    leaves ``state["step"]`` to the caller: a captured step replays with
+    the values filled in before each replay."""
     mode = cfg.moment_dtype
-    state["step"] = int(state["step"]) + 1
-    step = torch.tensor(float(state["step"]), dtype=torch.float32)
-    bcs = [float(1.0 - torch.pow(torch.tensor(b, dtype=torch.float32), step))
-           for b in (cfg.b1, cfg.b2)]
+    if corrections is None:
+        state["step"] = int(state["step"]) + 1
+        bcs = bias_corrections(state["step"], cfg)
+    elif mode != "fp32":
+        raise ValueError(f"device-scalar corrections need fp32 moments, not {mode!r}")
     if rng is None:
         rng = np.zeros(2, np.uint32)
     for i, (path, p) in enumerate(tree.leaves(params)):
         # 0-d device tensors (filled, not copied: no host sync), because
         # CUDA divides by a Python scalar through its reciprocal
-        bc1, bc2 = (torch.full((), v, dtype=torch.float32, device=p.device) for v in bcs)
+        bc1, bc2 = corrections or (torch.full((), v, dtype=torch.float32, device=p.device)
+                                   for v in bcs)
         g = tree.get(grads, path).to(torch.float32)
         if mode == "fp32":
             m, v = tree.get(state["m"], path), tree.get(state["v"], path)

@@ -927,3 +927,83 @@ def test_lm_family_on_the_card_follows_the_cpu(cuda, arch):
         assert (a is None) == (b is None)
         if a is not None:
             assert float((b - a).abs().max()) <= 1e-4 * (float(a.abs().max()) + 1e-30)
+
+
+# the gwlz-write cell's training step: 64x64 slices, G = 20, C = 9, batch 10
+CELL_TRAIN = dict(n_groups=20, channels=9, batch_size=10)
+
+
+def _cell_slices(dev, seed: int, n: int = 120):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(n, 64, 64, generator=g, device=dev)
+    return x, 0.01 * torch.randn(n, 64, 64, generator=g, device=dev)
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    yield
+    cudnn.deterministic, cudnn.benchmark = prev
+
+
+def test_captured_training_step_is_bit_equal_to_the_eager_step(cuda, deterministic_cudnn,
+                                                                 monkeypatch):
+    """train_enhancers' loop replays its captured step: every step's losses
+    and the parameters, Adam moments and BN statistics after it equal, bit
+    for bit, the eager step's from the same init on the same batches (24
+    steps).  Twice in one process, on new tensors, so a graph that kept a
+    stale address fails."""
+    from repro_torch.core import trainer as PT
+    from repro_torch.core.enhancer import GroupEnhancers
+    from repro_torch.optim import adamw
+
+    def state(enh, opt):
+        return [t.detach().clone() for t in (*enh.params().values(), enh.mean, enh.var,
+                                             *opt["m"].values(), *opt["v"].values())]
+
+    real = PT.train_step
+    cfg = PT.GWLZTrainConfig(**CELL_TRAIN, epochs=2)
+    for seed in (1, 2):
+        calls = []
+
+        def recorded(enh, opt_state, xb, rb, idsb, edges, rscale, lr, **kw):
+            args = (xb.clone(), rb.clone(), idsb.clone(), edges.clone(), rscale.clone(), lr)
+            captured = PT._CAPTURED.get() is not None
+            losses = real(enh, opt_state, xb, rb, idsb, edges, rscale, lr, **kw)
+            calls.append((args, kw, captured, losses.clone(), state(enh, opt_state)))
+            return losses
+
+        monkeypatch.setattr(PT, "train_step", recorded)
+        PT.train_enhancers(*_cell_slices(cuda, seed), cfg, device=cuda)
+        monkeypatch.setattr(PT, "train_step", real)
+        assert len(calls) == 24 and all(c[2] for c in calls)
+        enh = GroupEnhancers(20, 9, device=cuda, generator=torch.Generator().manual_seed(0))
+        opt = adamw.init(enh.params())
+        for args, kw, _, losses, after in calls:  # outside the loop: the eager step
+            assert torch.equal(PT.train_step(enh, opt, *args, **kw), losses)
+            assert all(torch.equal(a, b) for a, b in zip(state(enh, opt), after))
+
+
+def test_train_step_wrapper_sees_one_call_a_step_on_the_card(cuda, monkeypatch):
+    """The benchmark probe's contract with the captured step: a wrapper of
+    the module-level ``train_step`` sees one call a step, with
+    ``opt_state["step"]`` the call's index (no call from the warm-up or the
+    capture), and Adam's first moment moved once call 0 returns."""
+    from repro_torch.core import trainer as PT
+
+    real, steps, moved = PT.train_step, [], []
+
+    def probed(enh, opt_state, *args, **kwargs):
+        steps.append(int(opt_state["step"]))
+        losses = real(enh, opt_state, *args, **kwargs)
+        if len(steps) == 1:
+            moved.append(all(bool(m.abs().sum() > 0) for k, m in opt_state["m"].items()
+                             if k != "b1"))
+        return losses
+
+    monkeypatch.setattr(PT, "train_step", probed)
+    PT.train_enhancers(*_cell_slices(cuda, 3), PT.GWLZTrainConfig(**CELL_TRAIN, epochs=1),
+                       device=cuda)
+    assert steps == list(range(12)) and moved == [True]

@@ -169,3 +169,22 @@ def test_round_trip_emits_every_span(gwlz_trip):
     assert {type(r.attrs.get("hit")) for r in recs if r.name == "lane.tables"} == {bool}
     assert [r.attrs["steps"] for r in recs if r.name == "gwlz.train"] == [
         sum(r.name == "train.step" for r in recs)]
+
+
+def test_eager_training_steps_carry_no_graph_attribute(gwlz_trip):
+    _vol, recs = gwlz_trip
+    steps = [r for r in recs if r.name == "train.step"]
+    assert steps and all("graph" not in r.attrs for r in steps)
+
+
+def test_training_steps_on_the_card_are_graph_replays(recorder):
+    """On a card every step of train_enhancers' loop replays its captured
+    step, and its span says so."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    from repro_torch.core.trainer import train_enhancers
+
+    x = torch.rand(24, 32, 32, device="cuda")
+    train_enhancers(x, 0.01 * torch.randn_like(x), CFG, device="cuda")
+    steps = [r for r in obs.take() if r.name == "train.step"]
+    assert len(steps) == 24 // CFG.batch_size and all(r.attrs == {"graph": 1} for r in steps)

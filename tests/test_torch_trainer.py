@@ -67,6 +67,32 @@ def test_adamw_and_step_decay_bitexact():
     assert pstate["step"] == int(rstate["step"]) == 20
 
 
+def test_adamw_device_scalar_form_is_the_host_step():
+    """The captured step's update: the learning rate and the bias
+    corrections read from 0-d float32 tensors, the step count left to the
+    caller, gives the host-scalar update's bits; int8 moments refuse it."""
+    rng = np.random.default_rng(1)
+    p = {"a": rng.normal(0, 1, (5, 7)).astype(np.float32)}
+    host, dev = {k: T(v) for k, v in p.items()}, {k: T(v) for k, v in p.items()}
+    hs, ds = PA.init(host), PA.init(dev)
+    lr_t, bc1, bc2 = (torch.zeros(()) for _ in range(3))
+    for step in range(12):
+        g = {k: T(rng.normal(0, 1, v.shape).astype(np.float32)) for k, v in p.items()}
+        lr = step_decay(1e-3, 0.5, 5)(step)
+        PA.update(host, hs, g, lr)
+        ds["step"] += 1
+        for t, v in zip((lr_t, bc1, bc2), (lr, *PA.bias_corrections(ds["step"]))):
+            t.fill_(v)
+        PA.update(dev, ds, g, lr_t, corrections=(bc1, bc2))
+    assert ds["step"] == hs["step"] == 12
+    for k in p:
+        for got, want in ((dev[k], host[k]), (ds["m"][k], hs["m"][k]), (ds["v"][k], hs["v"][k])):
+            np.testing.assert_array_equal(_bits(got), _bits(want))
+    cfg = PA.AdamWConfig(moment_dtype="int8")
+    with pytest.raises(ValueError, match="fp32"):
+        PA.update(dev, PA.init(dev, cfg), g, lr_t, cfg, corrections=(bc1, bc2))
+
+
 @pytest.fixture(scope="module")
 def volume():
     x = nyx_like_field((16, 16, 16), "temperature", seed=3)
@@ -171,3 +197,25 @@ def test_train_step_keeps_tf32_off_through_the_backward(volume, monkeypatch):
     PT.train_step(enh, PA.init(enh.params()), T(x[:2]), T(r[:2]), T(ids[:2]), T(edges),
                   torch.ones(G), 1e-3, n_groups=G, residual_learning=True)
     assert seen == [False]
+
+
+def test_train_step_wrapper_sees_one_call_a_step(volume, monkeypatch):
+    """A wrapper of the module-level ``train_step`` (as the benchmark's
+    probe wraps it) sees one call a step of train_enhancers' loop, with
+    ``opt_state["step"]`` the call's index, and Adam's first moment moved
+    once call 0 returns."""
+    x, r, _, _, _ = volume
+    real, steps, moved = PT.train_step, [], []
+
+    def probed(enh, opt_state, *args, **kwargs):
+        steps.append(int(opt_state["step"]))
+        losses = real(enh, opt_state, *args, **kwargs)
+        if len(steps) == 1:
+            moved.append(all(bool(m.abs().sum() > 0) for k, m in opt_state["m"].items()
+                             if k != "b1"))
+        return losses
+
+    monkeypatch.setattr(PT, "train_step", probed)
+    cfg = PT.GWLZTrainConfig(n_groups=G, epochs=1, batch_size=2, min_group_pixels=64)
+    PT.train_enhancers(x, r, cfg, device="cpu")
+    assert steps == list(range(x.shape[0] // 2)) and moved == [True]
