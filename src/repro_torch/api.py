@@ -315,14 +315,15 @@ class CompressedVolume:
         if q:
             self.stats.record_quarantined(len(q))
 
-    def _tiles_for(self, ids: list[int]) -> np.ndarray:
+    def _tiles_for(self, ids: list[int], span=None) -> np.ndarray:
         """Final (enhanced) tile values for the given lane ids, through the
         size-capped (possibly shared) LRU with single-flight coalescing:
         cached tiles return as they are, lanes nobody is decoding are claimed
         and decode in ONE batched pipeline call (:meth:`_decode_claimed`),
         and lanes another thread already claimed are awaited.  An abandoned
         claim (the owner's decode raised) wakes the waiters, one of which
-        re-claims and retries."""
+        re-claims and retries.  ``span`` (an ``obs`` span) gets the read's
+        ``tiles`` and ``hits``."""
         cache, ns = self.tile_cache, self.cache_ns
         found: dict[int, np.ndarray] = {}
         decoded = 0
@@ -350,6 +351,8 @@ class CompressedVolume:
                 else:
                     found[k[1]] = v
         self.stats.record(decoded=decoded, hits=len(ids) - decoded)
+        if span is not None:
+            span.set(tiles=len(ids), hits=len(ids) - decoded)
         self._sync_quarantine()
         return np.stack([found[i] for i in ids])
 
@@ -390,9 +393,10 @@ class CompressedVolume:
             return np.empty(shape, np.float32)
         if self.tiled:
             roi = tuple(slice(lo, hi) for lo, hi, _s, _q in specs)
-            ids, geom = region_tiles(self.artifact, roi)
-            tiles = torch.from_numpy(self._tiles_for(ids.tolist()))
-            block = _tiled.assemble_region(tiles, geom, self.artifact.tile).numpy()
+            with obs.op("region") as s:
+                ids, geom = region_tiles(self.artifact, roi)
+                tiles = torch.from_numpy(self._tiles_for(ids.tolist(), span=s))
+                block = _tiled.assemble_region(tiles, geom, self.artifact.tile).numpy()
             origin = [lo for lo, _h, _s, _q in specs]
         else:
             block = self.decode()
@@ -509,11 +513,12 @@ def compress_stream(source, out, *, eb: float | None = None, abs_eb: float | Non
     uninterrupted run."""
     from repro_torch.exec import stream_compress
 
-    return stream_compress(
-        source, out, tile=tile, rel_eb=eb, abs_eb=abs_eb, backend=backend,
-        predictor=predictor, order=order, max_levels=max_levels, mem_budget=mem_budget,
-        enhance=(enhance if enhance else None), shape=shape, resume=resume, retry=retry,
-        device=device)
+    with obs.op("stream"):
+        return stream_compress(
+            source, out, tile=tile, rel_eb=eb, abs_eb=abs_eb, backend=backend,
+            predictor=predictor, order=order, max_levels=max_levels, mem_budget=mem_budget,
+            enhance=(enhance if enhance else None), shape=shape, resume=resume, retry=retry,
+            device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,13 @@ payload leaves by their ``nbytes`` wherever they live, packed lanes,
 reservoir), where process-level ``ru_maxrss`` is polluted by allocator
 baselines.  Both land in the :class:`StreamReport`.
 
+Spans (``repro_torch.obs``, off by default): ``stream.prepass`` once a
+call with a relative bound; a batch's ``stream.read`` (``batch``,
+``tiles``), ``stream.h2d``, ``stream.encode``, ``stream.pack`` (``lanes``;
+on the worker where the host stage packs), ``stream.reservoir`` and the
+caller's ``stream.wait`` on the host stage; the worker's
+``stream.append`` (``lanes``: append, commit, fsync).
+
 Fault tolerance (docs/ROBUSTNESS.md): the device encode and the host
 append both run under a :class:`~repro_torch.runtime.fault.RetryPolicy`.
 The retry scope of the device stage is ``encode_tiles`` only, as in the
@@ -49,6 +56,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.exec.plan import StreamPlan, plan_stream
 from repro_torch.exec.sources import TileSource, as_source, value_range
 from repro_torch.exec.writer import GWTCWriter
@@ -121,7 +129,8 @@ def _resolve_eb_streaming(source: TileSource, rel_eb, abs_eb) -> float:
     if (rel_eb is None) == (abs_eb is None):
         raise ValueError("pass exactly one of rel_eb / abs_eb")
     if rel_eb is not None:
-        lo, hi = value_range(source)
+        with obs.span("stream.prepass"):
+            lo, hi = value_range(source)
         vrange = float(np.float32(hi) - np.float32(lo))
         abs_eb = rel_eb * max(vrange, float(np.finfo(np.float32).tiny))
         absmax = max(abs(lo), abs(hi))
@@ -270,7 +279,8 @@ def stream_compress(source, dest, *, tile=(64, 64, 64), rel_eb: float | None = N
         t0 = time.perf_counter()
         try:
             if blobs is None:
-                blobs = pred.lane_bytes_batch(payload, len(ids), backend)
+                with obs.span("stream.pack", lanes=len(ids)):
+                    blobs = pred.lane_bytes_batch(payload, len(ids), backend)
 
             def append_batch():
                 if writer.can_rollback:
@@ -283,10 +293,11 @@ def stream_compress(source, dest, *, tile=(64, 64, 64), rel_eb: float | None = N
                     writer.append_lane(lane)
                 writer.commit()
 
-            if writer.can_rollback:
-                retry.run(append_batch, on_retry=note_retry(bidx))
-            else:
-                append_batch()  # shared sink: no safe replay, fail fast
+            with obs.span("stream.append", lanes=len(blobs)):
+                if writer.can_rollback:
+                    retry.run(append_batch, on_retry=note_retry(bidx))
+                else:
+                    append_batch()  # shared sink: no safe replay, fail fast
         finally:
             mem.sub(nbytes_held)
             with host_time_lock:
@@ -297,7 +308,8 @@ def stream_compress(source, dest, *, tile=(64, 64, 64), rel_eb: float | None = N
             ids = list(run)
             # the batch read stays OUTSIDE the retry scope: sources are
             # forward-only streams, a re-read is not generally possible
-            batch = _read_batch(src, ids, plan)
+            with obs.span("stream.read", batch=bidx, tiles=len(ids)):
+                batch = _read_batch(src, ids, plan)
             # the quantizer's overflow guard, applied to the data actually
             # seen (an abs_eb stream takes no range prepass)
             max_q = float(np.abs(batch[: len(ids)]).max()) / (2.0 * eb)
@@ -305,39 +317,45 @@ def stream_compress(source, dest, *, tile=(64, 64, 64), rel_eb: float | None = N
                 raise ValueError(
                     f"eb={eb:g} too small for data magnitude (q={max_q:.3g} >= 2^30)")
             mem.add(batch.nbytes)
-            xb = torch.from_numpy(batch).to(device)
+            with obs.span("stream.h2d"):
+                xb = torch.from_numpy(batch).to(device)
 
             def encode():
                 if injector is not None:
                     injector.maybe_fail(bidx)
                 return pred.encode_tiles(xb, eb, order=order, levels=levels)
 
-            payload, recon = retry.run(encode, on_retry=note_retry(bidx))
+            with obs.span("stream.encode"):
+                payload, recon = retry.run(encode, on_retry=note_retry(bidx))
             held = sum(leaf.nbytes for leaf in payload.values())
             blobs = None
             if device_entropy:
                 # the device stage packs the lanes actually written (not the
                 # batch's repeat padding) and copies back bytes only
-                blobs = pred.lane_bytes_batch(payload, len(ids), backend)
+                with obs.span("stream.pack", lanes=len(ids)):
+                    blobs = pred.lane_bytes_batch(payload, len(ids), backend)
                 held += sum(len(b) for b in blobs)
             mem.add(held)
             if reservoir is not None:
-                recon_np = recon[: len(ids)].cpu().numpy()
-                mem.add(recon_np.nbytes)
-                grew = reservoir.offer(recon_np, batch[: len(ids)] - recon_np)
-                mem.add(grew)
-                mem.sub(recon_np.nbytes)
-                del recon_np
+                with obs.span("stream.reservoir"):
+                    recon_np = recon[: len(ids)].cpu().numpy()
+                    mem.add(recon_np.nbytes)
+                    grew = reservoir.offer(recon_np, batch[: len(ids)] - recon_np)
+                    mem.add(grew)
+                    mem.sub(recon_np.nbytes)
+                    del recon_np
             del recon, xb
             mem.sub(batch.nbytes)
             del batch
             if pending is not None:
-                pending.result()  # cap in-flight host work at one batch
+                with obs.span("stream.wait"):
+                    pending.result()  # cap in-flight host work at one batch
             pending = pool.submit(host_stage, None if device_entropy else payload, ids,
                                   bidx, held, blobs)
             del payload, blobs
         if pending is not None:
-            pending.result()
+            with obs.span("stream.wait"):
+                pending.result()
             pending = None
 
         enhanced = False

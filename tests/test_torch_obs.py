@@ -139,13 +139,18 @@ def test_two_threads_get_two_requests(recorder):
 def test_spans_are_profiler_host_events_around_their_ops(recorder, field):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         _round_trip(field, predictor="interp")
-    events = [(e.name(), e.start_ns(), e.end_ns(), e.start_thread_id(), e.activity_type())
+    # the event's kind from the methods both the card's torch (2.11, no
+    # ``activity_type``) and the CPU's have: the device it ran on, and
+    # whether it is a user annotation
+    events = [(e.name(), e.start_ns(), e.end_ns(), e.start_thread_id(),
+               (e.device_type(), e.is_user_annotation()))
               for e in prof.profiler.kineto_results.events()]
     names = {e[0] for e in events}
     assert {"op.compress", "entropy.encode", "entropy.fit", "lane.parse", "lane.decode"} <= names
-    # a cpu_op range, not a user annotation: the profiler would mirror an
-    # annotation onto the device timeline as if it were device work
-    assert {e[4] for e in events if e[0] == "entropy.fit"} == {"cpu_op"}
+    # a host cpu_op range, not a user annotation: the profiler would mirror
+    # an annotation onto the device timeline as if it were device work
+    assert {e[4] for e in events if e[0] == "entropy.fit"} == {
+        (torch.autograd.DeviceType.CPU, False)}
     for span, op in (("entropy.fit", "aten::aminmax"), ("lane.decode", "aten::index")):
         outer = [e for e in events if e[0] == span]
         inner = [e for e in events if e[0] == op]
@@ -188,3 +193,74 @@ def test_training_steps_on_the_card_are_graph_replays(recorder):
     train_enhancers(x, 0.01 * torch.randn_like(x), CFG, device="cuda")
     steps = [r for r in obs.take() if r.name == "train.step"]
     assert len(steps) == 24 // CFG.batch_size and all(r.attrs == {"graph": 1} for r in steps)
+
+
+# every span of a streamed batch; ``stream.prepass`` is once a call
+STREAM_SPANS = ("stream.read", "stream.h2d", "stream.encode", "stream.pack",
+                "stream.reservoir", "stream.wait", "stream.append")
+# two 16^3 tiles a batch on the CPU (12 bytes a value of working set, two
+# batches in flight): the 32^3 field in four batches
+STREAM_BUDGET = 2 * 2 * 12 * 16 ** 3
+
+
+def _stream(x, path):
+    return api.compress_stream(x, path, eb=1e-3, tile=TILE, mem_budget=STREAM_BUDGET,
+                               enhance=CFG, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def streamed(field, tmp_path_factory):
+    """A GWLZ stream of the field in four batches with the recorder on:
+    its report, its file and its records."""
+    path = tmp_path_factory.mktemp("stream") / "s.gwtc"
+    obs.enable()
+    obs.take()
+    try:
+        rep = _stream(field, path)
+        return rep, path, obs.take()
+    finally:
+        obs.disable()
+
+
+def test_stream_spans_fire_once_a_batch(streamed):
+    rep, _path, recs = streamed
+    assert rep.n_batches == 4 and rep.batch_tiles == 2 and rep.enhanced
+    names = [r.name for r in recs]
+    assert names.count("op.stream") == 1 and names.count("stream.prepass") == 1
+    for name in STREAM_SPANS:
+        assert names.count(name) == rep.n_batches, name
+    reads = [r for r in recs if r.name == "stream.read"]
+    assert [r.attrs for r in reads] == [{"batch": b, "tiles": 2} for b in range(4)]
+    for name in ("stream.pack", "stream.append"):  # on the worker, on the CPU
+        got = [r for r in recs if r.name == name]
+        assert all(r.attrs == {"lanes": 2} for r in got)
+        assert {r.thread for r in got} != {reads[0].thread}
+    # the caller's spans sit inside the request's root
+    root = next(r for r in recs if r.name == "op.stream")
+    assert all(r.op == root.op and root.t0_ns <= r.t0_ns and r.t1_ns <= root.t1_ns
+               for r in recs if r.name in ("stream.read", "stream.wait"))
+
+
+def test_region_spans_carry_the_caches_counts(streamed, recorder):
+    _rep, path, _recs = streamed
+    boxes = [(slice(0, 8), slice(4, 20), slice(0, 32)), (slice(0, 8), slice(4, 20), slice(0, 9)),
+             (slice(10, 30), slice(0, 32), slice(15, 17))]
+    with api.open(path, device="cpu") as vol:
+        cache = vol.tile_cache
+        for box in boxes:
+            hits, misses = cache.hits, cache.misses
+            vol[box]
+            got = [r for r in obs.take() if r.name == "op.region"]
+            assert len(got) == 1
+            assert got[0].attrs == {"tiles": cache.hits - hits + cache.misses - misses,
+                                    "hits": cache.hits - hits}
+    assert got[0].attrs == {"tiles": 8, "hits": 4}  # the first box cached four of them
+
+
+def test_stream_and_region_record_nothing_with_the_recorder_off(field, tmp_path):
+    obs.disable()
+    obs.take()
+    _stream(field, tmp_path / "off.gwtc")
+    with api.open(tmp_path / "off.gwtc", device="cpu") as vol:
+        vol[0:8, 0:8, 0:8]
+    assert obs.take() == []
