@@ -10,7 +10,10 @@ Split between host and device:
   of each encode kernel (:func:`encode_codes_lanes`);
 * on the host, as numpy -- the Huffman tree (``_code_lengths``), canonical
   codes, decode tables, the splice of packed chunks into one stream
-  (``_splice_chunks``), zlib and the blob framing.
+  (``_splice_chunks``), zlib and the blob framing.  A call of several
+  lanes frames and deflates them on one process-wide pool of host threads
+  (:class:`_Deflate`; zlib releases the interpreter lock), while the
+  caller splices the next lane.
 
 Blobs are byte-identical to the reference's for the ``z2``/``z4`` (zlib),
 ``hc``/``hZ`` (chunked Huffman) and legacy ``hf``/``hz`` (one Huffman
@@ -31,9 +34,11 @@ from __future__ import annotations
 
 import heapq
 import math
+import os
 import struct
 import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -562,6 +567,78 @@ def _huffman_blob(codec: HuffmanCodec, n: int, cs: int, chunk_bits: np.ndarray, 
             + table + struct.pack("<Q", total) + payload)
 
 
+_POOL: tuple[int, int, ThreadPoolExecutor] | None = None  # (pid, workers, pool)
+_POOL_LOCK = threading.Lock()
+if hasattr(os, "register_at_fork"):  # a fork waits for the lock: no child inherits it held
+    os.register_at_fork(before=_POOL_LOCK.acquire, after_in_parent=_POOL_LOCK.release,
+                        after_in_child=_POOL_LOCK.release)
+
+
+def _usable_cores() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # not Linux
+        return os.cpu_count() or 1
+
+
+def _deflate_pool() -> tuple[ThreadPoolExecutor, int]:
+    """The process's pool of host threads for the lanes' framing and zlib
+    and its size, the usable cores; made on first use.  Every caller shares
+    it (the serve daemon's requests, a stream's caller beside its writer
+    thread), so their threads never outnumber the cores.  Keyed on the
+    process id: a forked child makes its own and never queues work on
+    threads it did not inherit."""
+    global _POOL
+    pid = os.getpid()
+    with _POOL_LOCK:
+        if _POOL is None or _POOL[0] != pid:
+            workers = _usable_cores()
+            _POOL = (pid, workers, ThreadPoolExecutor(workers, thread_name_prefix="lane-deflate"))
+        return _POOL[2], _POOL[1]
+
+
+class _Deflate:
+    """One call's lane blobs: each lane's framing and zlib (``_huffman_blob``
+    / ``_zlib_blob``) run on :func:`_deflate_pool` where the call has at
+    least 2 lanes and the pool at least 2 workers, else on the caller in
+    :meth:`blobs`.  The bytes and their order are the serial loop's.
+
+    ``with _Deflate(L) as d:``, ``d.submit(i, fn, *args)`` as lane ``i``'s
+    input is ready, then ``d.blobs()``: the call's one ``entropy.deflate``
+    span, the caller's wait for blobs not yet finished (``lanes``;
+    ``workers``, the threads it could use; ``pooled``).  No pool thread
+    records a span: concurrent spans would sum to CPU seconds, not the
+    call's.  Leaving the block, on an error too, cancels the lanes not yet
+    started and waits for the others, so no lane's work outlives the call."""
+
+    def __init__(self, lanes: int):
+        self.lanes = lanes
+        self.pool, self.workers = _deflate_pool() if lanes >= 2 else (None, 1)
+        if self.workers < 2:
+            self.pool, self.workers = None, 1
+        self.jobs: list = [None] * lanes  # a Future each, or (fn, args) on the caller
+
+    def submit(self, i: int, fn, *args) -> None:
+        self.jobs[i] = self.pool.submit(fn, *args) if self.pool else (fn, args)
+
+    def blobs(self) -> list[bytes]:
+        with obs.span("entropy.deflate", lanes=self.lanes, workers=self.workers,
+                      pooled=self.pool is not None):
+            if self.pool is None:
+                return [fn(*args) for fn, args in self.jobs]
+            return [job.result() for job in self.jobs]
+
+    def __enter__(self) -> "_Deflate":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.pool is not None:
+            jobs = [job for job in self.jobs if job is not None]
+            for job in jobs:
+                job.cancel()
+            wait(jobs)
+
+
 def encode_codes(codes: torch.Tensor, backend: str = "huffman+zlib", *,
                  chunk_size: int | None = None) -> bytes:
     """Entropy-encode an int32 code tensor into a self-describing blob
@@ -583,17 +660,17 @@ def encode_codes_lanes(codes: torch.Tensor, backend: str = "huffman+zlib", *,
     lane is fitted and packed alone (``HuffmanCodec.fit`` -- a dense
     histogram up to 2**22, ``torch.unique`` past it -- then
     ``_device_pack``), on the same device.  Either way the per-symbol work
-    stays on the device and the bytes are the same."""
+    stays on the device and the bytes are the same.  Each lane's framing and
+    zlib go to the host threads of :class:`_Deflate` as its input is ready."""
     L, n = codes.shape[0], math.prod(codes.shape[1:])
     with obs.span("entropy.encode", lanes=L) as sp:
         flat = codes.reshape(L, n).to(torch.int32)
         if backend == "zlib":
             host = flat.cpu().numpy()
-            blobs = []
-            for i in range(L):
-                with obs.span("entropy.deflate"):
-                    blobs.append(_zlib_blob(host[i]))
-            return blobs
+            with _Deflate(L) as lanes:
+                for i in range(L):
+                    lanes.submit(i, _zlib_blob, host[i])
+                return lanes.blobs()
         if backend not in ("huffman", "huffman+zlib"):
             raise ValueError(f"unknown entropy backend {backend!r}")
         cs = int(chunk_size) if chunk_size else DEFAULT_CHUNK
@@ -608,32 +685,32 @@ def encode_codes_lanes(codes: torch.Tensor, backend: str = "huffman+zlib", *,
             lo, hi = torch.aminmax(flat, dim=1)
             lo_h, hi_h = torch.stack([lo, hi]).cpu().numpy().astype(np.int64)
         span = hi_h - lo_h + 1
-        blobs: list[bytes] = [b""] * L
-        for i in np.flatnonzero(span > _LANES_SPAN):
-            with obs.span("entropy.fit"):
-                codec = HuffmanCodec.fit(flat[i])
-            stream, chunk_bits, total = codec._device_pack(flat[i], cs)
-            with obs.span("entropy.deflate"):
-                blobs[i] = _huffman_blob(codec, n, cs, chunk_bits, stream, total, backend)
         batch = np.flatnonzero(span <= _LANES_SPAN)
         sp.set(batched=int(batch.size))
-        if batch.size:
-            if batch.size < L:
-                keep = torch.from_numpy(batch).to(flat.device)
-                flat, lo = flat[keep], lo[keep]
-            for i, blob in zip(batch, _encode_lanes_batched(flat, lo, lo_h[batch], span[batch],
-                                                            cs, backend)):
-                blobs[i] = blob
-        return blobs
+        with _Deflate(L) as lanes:
+            for i in np.flatnonzero(span > _LANES_SPAN):
+                with obs.span("entropy.fit"):
+                    codec = HuffmanCodec.fit(flat[i])
+                stream, chunk_bits, total = codec._device_pack(flat[i], cs)
+                lanes.submit(i, _huffman_blob, codec, n, cs, chunk_bits, stream, total, backend)
+            if batch.size:
+                if batch.size < L:
+                    keep = torch.from_numpy(batch).to(flat.device)
+                    flat, lo = flat[keep], lo[keep]
+                _encode_lanes_batched(flat, lo, lo_h[batch], span[batch], cs, backend,
+                                      lanes, batch)
+            return lanes.blobs()
 
 
 def _encode_lanes_batched(flat: torch.Tensor, lo: torch.Tensor, lo_h: np.ndarray,
-                          span: np.ndarray, cs: int, backend: str) -> list[bytes]:
+                          span: np.ndarray, cs: int, backend: str, lanes: _Deflate,
+                          ids: np.ndarray) -> None:
     """Huffman blobs of the lanes ``flat`` [L, n] (int32; lane minima ``lo``
-    on the device and ``lo_h`` on the host; spans ``span``): the inputs of
-    :func:`_lanes_pack_inputs`, one encode launch over all lanes' chunks,
-    one copy back of the chunk bits and one of the words up to the widest
-    chunk, then per lane on the host the splice, framing and zlib."""
+    on the device and ``lo_h`` on the host; spans ``span``), handed to
+    ``lanes`` as lanes ``ids``: the inputs of :func:`_lanes_pack_inputs`,
+    one encode launch over all lanes' chunks, one copy back of the chunk
+    bits and one of the words up to the widest chunk, then per lane on the
+    host the splice here and the framing and zlib on ``lanes``."""
     L, n = flat.shape
     with obs.span("entropy.fit"):
         codecs, lens, cws = _lanes_pack_inputs(flat, lo, lo_h, span, cs)
@@ -644,13 +721,10 @@ def _encode_lanes_batched(flat: torch.Tensor, lo: torch.Tensor, lo_h: np.ndarray
         bits = chunk_bits.cpu().numpy().astype(np.int64).reshape(L, C)
         used = -(-int(bits.max()) // 32)  # words past the widest chunk are zero
         local = words[:, :used].contiguous().cpu().numpy().view(np.uint32).reshape(L, C, used)
-    blobs = []
     for i in range(L):
         with obs.span("entropy.splice"):
             stream, total = _splice_chunks(local[i, :, : -(-int(bits[i].max()) // 32)], bits[i])
-        with obs.span("entropy.deflate"):
-            blobs.append(_huffman_blob(codecs[i], n, cs, bits[i], stream, total, backend))
-    return blobs
+        lanes.submit(ids[i], _huffman_blob, codecs[i], n, cs, bits[i], stream, total, backend)
 
 
 def _hist_batches(span: np.ndarray, budget: int) -> list[np.ndarray]:

@@ -6,7 +6,14 @@ the kernels run).  Codecs, blob bytes and decodes are compared bit for bit,
 and the plain kernels are held against the reference's Pallas kernels in
 interpret mode (one small case each) and its jnp path.
 """
+import os
 import struct
+import subprocess
+import sys
+import threading
+import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -458,3 +465,165 @@ def test_range_decode_uploads_only_its_chunks(monkeypatch):
     (n_words, offsets, counts), = seen
     assert len(offsets) == 2 and counts == [64, 64]  # chunks 2 and 3
     assert n_words * 32 < sum(P.parse_chunked(blob)[3]) / 4
+
+
+# --- the lanes' framing and zlib on the process's host threads ---
+
+
+class _CountingPool(ThreadPoolExecutor):
+    """A pool that counts the work handed to it."""
+
+    def __init__(self, workers: int):
+        super().__init__(workers, thread_name_prefix="test-deflate")
+        self.submitted = 0
+
+    def submit(self, fn, *args, **kwargs):
+        self.submitted += 1
+        return super().submit(fn, *args, **kwargs)
+
+
+@pytest.fixture
+def pool_of(monkeypatch):
+    """Put a counting pool of ``workers`` threads in the module's place."""
+    made = []
+
+    def install(workers: int) -> _CountingPool:
+        made.append(_CountingPool(workers))
+        monkeypatch.setattr(P, "_POOL", (os.getpid(), workers, made[-1]))
+        return made[-1]
+
+    yield install
+    for pool in made:
+        pool.shutdown(wait=True)
+
+
+def _lanes(case: str) -> np.ndarray:
+    rng = np.random.default_rng(31)
+    if case == "mixed":  # lanes 1 and 3 span more than _LANES_SPAN
+        lanes = np.rint(rng.laplace(0, 3, size=(5, 3000))).astype(np.int32)
+        lanes[1, ::7] = rng.integers(-(2**17), 2**17, size=lanes[1, ::7].size)
+        lanes[3, :2] = (-(2**20), 2**20)
+        return lanes
+    return np.rint(rng.laplace(0, 3, size=(int(case), 4096))).astype(np.int32)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("case", ["1", "2", "33", "mixed"])
+def test_pooled_lanes_are_the_serial_bytes(pool_of, case, backend):
+    """``encode_codes_lanes`` with the pool engaged gives, lane for lane and
+    byte for byte, the blobs of the pool held to one worker (the serial
+    path, which hands the pool nothing) and of one ``encode_codes`` a lane;
+    a one-lane call never engages the pool."""
+    lanes = _lanes(case)
+    if case == "mixed":
+        span = lanes.max(axis=1).astype(np.int64) - lanes.min(axis=1) + 1
+        assert list(span > P._LANES_SPAN) == [False, True, False, True, False]
+    one = pool_of(1)
+    serial = P.encode_codes_lanes(_t(lanes), backend)
+    assert one.submitted == 0
+    many = pool_of(4)
+    pooled = P.encode_codes_lanes(_t(lanes), backend)
+    assert many.submitted == (len(lanes) if len(lanes) >= 2 else 0)
+    assert pooled == serial == [P.encode_codes(_t(lane), backend) for lane in lanes]
+    for lane, blob in zip(lanes, pooled):
+        np.testing.assert_array_equal(P.decode_codes(blob, lane.shape, device="cpu").numpy(),
+                                      lane)
+
+
+def test_a_failed_lane_reaches_the_caller_and_the_pool_stays_usable(pool_of, monkeypatch):
+    """zlib raising on one lane raises in the caller after every lane's
+    work has ended; the next call on the same pool gives the serial bytes."""
+    lanes = _lanes("33")
+    want = [P.encode_codes(_t(lane)) for lane in lanes]
+    pool_of(4)
+    real = zlib.compress
+    lock = threading.Lock()
+    seen = {"calls": 0, "running": 0}
+
+    def flaky(data, level=-1):
+        with lock:
+            seen["calls"] += 1
+            seen["running"] += 1
+            k = seen["calls"]
+        try:
+            time.sleep(0.002)
+            if k == 5:
+                raise zlib.error("lane 5 refused")
+            return real(data, level)
+        finally:
+            with lock:
+                seen["running"] -= 1
+
+    monkeypatch.setattr(P.zlib, "compress", flaky)
+    with pytest.raises(zlib.error, match="lane 5 refused"):
+        P.encode_codes_lanes(_t(lanes))
+    assert seen["running"] == 0  # no lane's zlib outlived the call
+    assert P.encode_codes_lanes(_t(lanes)) == want
+
+
+def test_concurrent_callers_share_one_pool(monkeypatch):
+    """More callers than cores, from a process with no pool yet, under a
+    short switch interval: they make one pool between them, and each gets
+    its own lanes' bytes in order."""
+    monkeypatch.setattr(P, "_POOL", None)
+    inputs = [np.rint(np.random.default_rng(k).laplace(0, 2 + k, size=(6, 2048))).astype(np.int32)
+              for k in range(P._usable_cores() + 2)]
+    want = [[P.encode_codes(_t(lane)) for lane in lanes] for lanes in inputs]
+    got, pools = [None] * len(inputs), set()
+    start = threading.Barrier(len(inputs))
+
+    def caller(k):
+        start.wait()
+        pools.add(id(P._deflate_pool()[0]))  # all at once: the pool's making races
+        got[k] = P.encode_codes_lanes(_t(inputs[k]))
+        pools.add(id(P._POOL[2]))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    threads = [threading.Thread(target=caller, args=(k,)) for k in range(len(inputs))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+        P._POOL[2].shutdown(wait=True)
+    assert not any(t.is_alive() for t in threads)
+    assert len(pools) == 1 and got == want
+
+
+_FORK_CHILD = """
+import faulthandler, os, sys
+import numpy as np, torch
+torch.set_num_threads(1)  # torch's own OpenMP workers do not survive a fork
+from repro_torch.sz import entropy as P
+lanes = torch.from_numpy(np.random.default_rng(5).integers(-9, 9, size=(2, 3000), dtype=np.int32))
+want = P.encode_codes_lanes(lanes)  # the parent uses the pool
+assert P._POOL is not None and P._POOL[0] == os.getpid()
+pid = os.fork()
+if pid == 0:  # the child: leave by os._exit alone
+    faulthandler.dump_traceback_later(60, exit=True)  # a hang prints where it waits
+    code = 3
+    try:
+        code = 0 if P.encode_codes_lanes(lanes) == want else 1
+    finally:
+        os._exit(code)
+_, status = os.waitpid(pid, 0)
+sys.exit(os.waitstatus_to_exitcode(status))
+"""
+
+
+@pytest.mark.skipif(not hasattr(os, "fork"), reason="os.fork is POSIX only")
+def test_a_forked_child_makes_its_own_pool():
+    """After the parent used the pool, a child made by ``os.fork`` (which
+    inherits none of its threads) encodes 2 lanes and exits 0, within a
+    time limit.  In a process of its own, which imports no JAX and keeps
+    torch to one thread: forking a process with JAX's or OpenMP's threads
+    alive is unsafe whatever the pool does."""
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    got = subprocess.run([sys.executable, "-c", _FORK_CHILD], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert got.returncode == 0, got.stderr[-2000:]

@@ -195,6 +195,37 @@ def test_training_steps_on_the_card_are_graph_replays(recorder):
     assert len(steps) == 24 // CFG.batch_size and all(r.attrs == {"graph": 1} for r in steps)
 
 
+def test_one_deflate_span_a_call_and_none_from_the_pool(recorder, field, monkeypatch):
+    """With the lanes' zlib on a pool of 4 host threads, a tiled compress
+    records one ``entropy.deflate`` span a multi-lane ``encode_codes_lanes``
+    call (its ``entropy.encode``), on the caller's thread inside
+    ``op.compress`` with ``lanes``, ``workers`` and ``pooled``; no span
+    comes from the pool's threads."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.sz import entropy
+
+    pool = ThreadPoolExecutor(4, thread_name_prefix="test-deflate")
+    monkeypatch.setattr(entropy, "_POOL", (os.getpid(), 4, pool))
+    try:
+        api.compress(field, eb=1e-3, tiled=True, tile=TILE, device="cpu", predictor="interp")
+        recs = obs.take()
+        workers = {t.ident for t in threading.enumerate() if t.name.startswith("test-deflate")}
+    finally:
+        pool.shutdown(wait=True)
+    assert workers and not workers & {r.thread for r in recs}
+    (root,) = [r for r in recs if r.name == "op.compress"]
+    calls = [r for r in recs if r.name == "entropy.encode" and r.attrs["lanes"] >= 2]
+    deflates = [r for r in recs if r.name == "entropy.deflate"]
+    assert calls and len(deflates) == len(calls)
+    for call in calls:
+        (d,) = [r for r in deflates if r.parent == call.id]
+        assert d.attrs == {"lanes": call.attrs["lanes"], "workers": 4, "pooled": True}
+        assert d.thread == root.thread and d.op == root.op
+        assert root.t0_ns <= call.t0_ns <= d.t0_ns <= d.t1_ns <= call.t1_ns <= root.t1_ns
+
+
 # every span of a streamed batch; ``stream.prepass`` is once a call
 STREAM_SPANS = ("stream.read", "stream.h2d", "stream.encode", "stream.pack",
                 "stream.reservoir", "stream.wait", "stream.append")
