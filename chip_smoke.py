@@ -2904,7 +2904,7 @@ def legacy_inputs(blob: bytes, dev):
     (total,) = struct.unpack_from("<Q", body, 0)
     tabs = codec._tables_on(dev)
     words = entropy._stream_words(body[8:], 0, None, dev)
-    return ((words, tabs["cw_map"], tabs["len_sorted"]),
+    return ((words, tabs.cw_map, tabs.len_sorted),
             dict(n_symbols=n, chunk_size=entropy.DEFAULT_CHUNK), total)
 
 
@@ -3492,34 +3492,32 @@ def kernel_rows(par: Parity, x_np, art, path_launches: dict, gw: dict, sz_art,
     dcodec, n_sym, dcs, chunk_bits, stream, _ = entropy.parse_chunked(art.tile_blobs[lane])
     cb = np.asarray(chunk_bits, np.int64)
     args, kw = dcodec._decode_inputs(stream, n_sym, dcs, np.cumsum(cb) - cb, dev)
-    kw_lut = {**kw, "lut": dcodec._tables_on(dev)["lut"]}  # as the decode path passes it
-    ids = huffman_decode.huffman_decode_probe(*args, **kw_lut)
+    ids = huffman_decode.huffman_decode_probe(*args, **kw)
     par.compare("huffman_decode", "main_lane", ids, ref.huffman_decode_ref(*args, **kw))
     # bytes: the stream's words, the chunk offsets and counts read, the ids
     # written (the codec's tables are left out: they derive from its header)
     n_words = -(-int(cb.sum()) // 32)
     nbytes = 4 * (n_words + args[1].numel() + args[2].numel() + ids.numel())
-    row("huffman_decode", lambda: huffman_decode.huffman_decode_probe(*args, **kw_lut),
+    row("huffman_decode", lambda: huffman_decode.huffman_decode_probe(*args, **kw),
         lambda: ref.huffman_decode_ref(*args, **kw), nbytes, 16 * n_sym, plain_reps=5)
     rows["huffman_decode"]["shape_note"] = (f"{args[0].numel()} stream words, "
                                             f"ids [{ids.shape[0]}, {ids.shape[1]}]")
-    del args, kw_lut, ids
+    del args, ids
 
     dcodec, n_sym, dcs, chunk_bits, stream, _ = entropy.parse_chunked(sz_art.code_blob)
     cb = np.asarray(chunk_bits, np.int64)
     args, kw = dcodec._decode_inputs(stream, n_sym, dcs, np.cumsum(cb) - cb, dev)
-    kw_lut = {**kw, "lut": dcodec._tables_on(dev)["lut"]}
-    ids = huffman_decode.huffman_decode_probe(*args, **kw_lut)
+    ids = huffman_decode.huffman_decode_probe(*args, **kw)
     par.compare("huffman_decode", "szjx_stream", ids, ref.huffman_decode_ref(*args, **kw))
     n_words = -(-int(cb.sum()) // 32)
     nbytes = 4 * (n_words + args[1].numel() + args[2].numel() + ids.numel())
     time_row(mrows, "huffman_decode",
-             lambda: huffman_decode.huffman_decode_probe(*args, **kw_lut),
+             lambda: huffman_decode.huffman_decode_probe(*args, **kw),
              lambda: ref.huffman_decode_ref(*args, **kw), nbytes, 16 * n_sym, reps=20,
              plain_reps=1)
     mrows["huffman_decode"]["shape_note"] = (f"{args[0].numel()} stream words, ids "
                                              f"[{ids.shape[0]}, {ids.shape[1]}], one stream")
-    del args, kw_lut, ids
+    del args, ids
 
     gw_art, model, gw_launches = gw["gwlz"]
     rows.update(gwlz_kernel_rows(par, tile_slices(gw_art), model, "gwlz", "residual",

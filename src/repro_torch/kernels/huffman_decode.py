@@ -2,18 +2,16 @@
 (``csrc/huffman_decode.cu``; replaces ``repro/kernels/huffman_decode.py::
 huffman_decode_probe``).  Plain version: ``ref.huffman_decode_ref``.
 
-The op takes the TPU kernel's split int32 tables (``lut_count``,
-``lut_bits``, ``lut_ids`` [S, 2**k]).  The kernel reads the LUT as one
-64-bit entry per window, the layout of the host codec's ``_multi_lut``:
-count in bits 0-7, consumed bits in 8-15, then the S ids in B-bit slots from
-bit 16 (or one 32-bit id from bit 32).  The codec hands its own packed LUT
-to the launcher; :func:`pack_lut` builds it from split tables for callers
-that have only those."""
+The decode reads its LUT as one 64-bit entry per k-bit window: the count of
+whole codes in the window in bits 0-7 (0: escape to the binary search over
+``cw_map``), the bits they consume in bits 8-15, then S ids of B bits from
+bit ``id_base``.  :func:`lut_layout` is the rule that picks B, S and
+``id_base`` from the alphabet size; the codec builds its LUT with it and the
+launcher and the plain version read the entry with it."""
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -22,58 +20,35 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, ctypes.c_longlong, _P, _I, _P, ctypes.c_longlong, _P, _I, _I, _I,
              _P, _P, _P, _I, _I, _P, _P)
-MAX_IDS = 8  # ids one probe may yield (the kernel's MAX_S)
+_DTYPES = {"offsets": (torch.int32, torch.int64), "lut": (torch.int64,)}  # others: int32
 
 
-def lut_layout(S: int) -> tuple[int, int]:
-    """(B, id_base): bits per id slot and the first slot's bit offset of a
-    packed entry holding S ids (the host's ``_multi_lut``: 6 x 8, 3 x 16 or
-    1 x 32 bits)."""
-    if not 1 <= S <= MAX_IDS:
-        raise ValueError(f"a probe of {S} ids is outside 1..{MAX_IDS}")
-    return (32, 32) if S == 1 else (48 // S, 16)
+def lut_layout(n_symbols: int) -> tuple[int, int, int]:
+    """(B, S, id_base) of a LUT entry over an alphabet of ``n_symbols``:
+    6 ids of 8 bits from bit 16 up to 256 symbols, 3 of 16 bits from bit 16
+    up to 65,536, else one 32-bit id from bit 32."""
+    B = 8 if n_symbols <= 256 else (16 if n_symbols <= 65536 else 32)
+    id_base = 32 if B == 32 else 16
+    return B, (64 - id_base) // B, id_base
 
 
-def pack_lut(lut_count: np.ndarray, lut_bits: np.ndarray, lut_ids: np.ndarray):
-    """Split int32 tables (numpy) -> (packed uint64 [2**k], B, id_base).
-    Refuses tables the packing cannot hold exactly: counts outside 0..S,
-    consumed bits outside 0..255, ids outside B bits."""
-    S = lut_ids.shape[0]
-    B, id_base = lut_layout(S)
-    cnt = lut_count.astype(np.int64)
-    bits = lut_bits.astype(np.int64)
-    ids = lut_ids.astype(np.int64)
-    if cnt.size and (cnt.min() < 0 or cnt.max() > S or bits.min() < 0 or bits.max() > 255
-                     or ids.min() < 0 or ids.max() >= 1 << B):
-        raise ValueError("LUT tables outside the packed layout (counts 0..S, bits "
-                         f"0..255, ids of {B} bits)")
-    packed = cnt.astype(np.uint64) | (bits.astype(np.uint64) << np.uint64(8))
-    for j in range(S):
-        packed |= ids[j].astype(np.uint64) << np.uint64(id_base + j * B)
-    return packed, B, id_base
-
-
-def huffman_decode_probe(words, offsets, counts, lut_count, lut_bits, lut_ids,
-                         cw_map, order, len_sorted, *, chunk_size: int, k: int,
-                         lut: torch.Tensor | None = None) -> torch.Tensor:
+def huffman_decode_probe(words, offsets, counts, lut, cw_map, order, len_sorted, *,
+                         chunk_size: int, k: int) -> torch.Tensor:
     """words: [NW] int32 big-endian stream words; offsets: [C] int32 or int64
-    bit offsets; counts: [C] int32; tables from ``HuffmanCodec._device_tables``
-    (lut_ids is [S, 2**k]), all CUDA tensors on one device; ``lut``: the same
-    LUT packed (int64 [2**k] on that device, as ``pack_lut`` packs it), or
-    None to pack it here from the split tables.  Returns ids [C, chunk_size]
-    int32."""
-    named = dict(words=words, offsets=offsets, counts=counts, lut_count=lut_count,
-                 lut_bits=lut_bits, lut_ids=lut_ids, cw_map=cw_map, order=order,
-                 len_sorted=len_sorted)
+    bit offsets; counts: [C] int32; lut: int64 [2**k] packed entries
+    (:func:`lut_layout`); cw_map, order, len_sorted: int32 [n]; all CUDA
+    tensors on one device.  Returns ids [C, chunk_size] int32."""
+    named = dict(words=words, offsets=offsets, counts=counts, lut=lut, cw_map=cw_map,
+                 order=order, len_sorted=len_sorted)
     for name, t in named.items():
-        ok = (torch.int32, torch.int64) if name == "offsets" else (torch.int32,)
+        ok = _DTYPES.get(name, (torch.int32,))
         if not t.is_cuda or t.dtype not in ok or t.device != words.device:
             raise ValueError(f"huffman_decode_probe: {name} must be an "
                              f"{' or '.join(str(d)[6:] for d in ok)} tensor on "
                              f"{words.device}, got {t.dtype} on {t.device}")
     n = order.shape[0]
-    if not 1 <= k <= 32 or lut_count.shape[0] != 1 << k or lut_ids.shape[1] != 1 << k:
-        raise ValueError(f"LUT tables do not match k={k}")
+    if not 1 <= k <= 32 or lut.shape != (1 << k,):
+        raise ValueError(f"the LUT does not have 2**{k} entries")
     if n == 0 or cw_map.shape[0] != n or len_sorted.shape[0] != n or n >= 2**31 - 1:
         raise ValueError("codeword tables must be nonempty and of one length")
     C = offsets.shape[0]
@@ -81,14 +56,8 @@ def huffman_decode_probe(words, offsets, counts, lut_count, lut_bits, lut_ids,
         raise ValueError("offsets/counts must be [C] and chunk_size positive")
     if C * chunk_size >= 2**62:
         raise ValueError(f"{C} chunks of {chunk_size} ids exceed the kernel's indexing")
-    B, id_base = lut_layout(lut_ids.shape[0])
-    if lut is None:
-        packed, _, _ = pack_lut(*(t.cpu().numpy() for t in (lut_count, lut_bits, lut_ids)))
-        lut = torch.from_numpy(packed.view(np.int64)).to(words.device)
-    elif lut.dtype != torch.int64 or lut.shape != (1 << k,) or lut.device != words.device:
-        raise ValueError(f"the packed LUT must be int64 [{1 << k}] on {words.device}")
-    lut = lut.contiguous()
-    words, offsets, counts = words.contiguous(), offsets.contiguous(), counts.contiguous()
+    B, _, id_base = lut_layout(n)
+    words, offsets, counts, lut = (t.contiguous() for t in (words, offsets, counts, lut))
     cw_map, order, len_sorted = cw_map.contiguous(), order.contiguous(), len_sorted.contiguous()
     out = torch.empty((C, chunk_size), dtype=torch.int32, device=words.device)
     if C == 0:

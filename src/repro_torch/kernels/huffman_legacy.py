@@ -1,8 +1,8 @@
 """Launcher of the legacy-stream boundary pass (``csrc/huffman_legacy.cu``).
 
 A legacy ``hf``/``hz`` Huffman stream has no chunk table; the reference
-reads it with a host bit walk (``repro/sz/entropy.py::HuffmanCodec.
-decode_bitwalk``), which has no Pallas kernel.  This kernel finds every
+reads it with a host bit walk (``decode_bitwalk`` in
+``repro/sz/entropy.py``), which has no Pallas kernel.  This kernel finds every
 chunk's start bit by pointer doubling over the stream's bit positions, so
 the chunked decode kernel can decode the chunks in parallel.  Plain
 version: ``ref.huffman_legacy_bounds_ref``."""
@@ -31,8 +31,8 @@ def _workspace_bytes(n_words: int, n_symbols: int, chunk_size: int) -> int:
 def huffman_legacy_bounds(words, cw_map, len_sorted, *, n_symbols: int,
                           chunk_size: int) -> torch.Tensor:
     """words: [NW] int32 big-endian stream words (the stream starts at bit
-    0); cw_map, len_sorted: int32 [n] (``HuffmanCodec._device_tables``), all
-    CUDA tensors on one device; ``chunk_size`` a power of two.  Returns
+    0); cw_map, len_sorted: int32 [n], the codec's decode tables, all CUDA
+    tensors on one device; ``chunk_size`` a power of two.  Returns
     int64 [C + 1], C = ceil(n_symbols / chunk_size): the start bit of every
     chunk, then the bit after the last symbol."""
     for name, t in (("words", words), ("cw_map", cw_map), ("len_sorted", len_sorted)):

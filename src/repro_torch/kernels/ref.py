@@ -19,6 +19,7 @@ from repro_torch.kernels.enhancer_fused import (  # the kernel owns its table la
     enhancer_channels,
     single_enhancer,
 )
+from repro_torch.kernels.huffman_decode import lut_layout
 
 _M32 = 0xFFFFFFFF
 
@@ -108,20 +109,21 @@ def huffman_encode_ref(lens: torch.Tensor, codes: torch.Tensor):
     return _to_int32(words[:, :cs]), ends[:, -1].to(torch.int32)
 
 
-def huffman_decode_ref(words, offsets, counts, lut_count, lut_bits, lut_ids,
-                       cw_map, order, len_sorted, *, chunk_size: int, k: int):
+def huffman_decode_ref(words, offsets, counts, lut, cw_map, order, len_sorted, *,
+                       chunk_size: int, k: int):
     """Multi-symbol LUT Huffman decode, all chunks in lockstep (the body of
     ``repro.kernels.huffman_decode._decode_block`` in torch).
 
     words: [NW] int32 big-endian stream words with >= 2 zero tail words;
     offsets: [C] int32 or int64 bit offsets (walked in int64, so a stream
-    may run past 2**32 bits); counts: [C] int32 symbol counts; tables from
-    ``HuffmanCodec._device_tables``.  Returns ids [C, chunk_size] int32,
-    zero past each chunk's count."""
+    may run past 2**32 bits); counts: [C] int32 symbol counts; lut: int64
+    [2**k] packed entries, read with the kernel's shifts
+    (``huffman_decode.lut_layout``); cw_map, order, len_sorted: int32 [n].
+    Returns ids [C, chunk_size] int32, zero past each chunk's count."""
     dev = words.device
     C = offsets.shape[0]
-    S = lut_ids.shape[0]
     n = order.shape[0]
+    B, S, id_base = lut_layout(n)
     w64 = words.to(torch.int64) & _M32
     last = w64.shape[0] - 1
     cw = cw_map.to(torch.int64)
@@ -131,6 +133,7 @@ def huffman_decode_ref(words, offsets, counts, lut_count, lut_bits, lut_ids,
     out = torch.zeros(C * chunk_size, dtype=torch.int32, device=dev)
     base = torch.arange(C, dtype=torch.int64, device=dev) * chunk_size
     slots = torch.arange(S, dtype=torch.int64, device=dev)
+    shifts = id_base + B * slots
     for _ in range(chunk_size):  # every probe yields >= 1 symbol
         active = cur < target
         if not bool(active.any()):
@@ -141,9 +144,10 @@ def huffman_decode_ref(words, offsets, counts, lut_count, lut_bits, lut_ids,
         nxt = w64[(wi + 1).clamp(max=last)]
         w = ((h << sh) | (nxt >> (32 - sh))) & _M32
         idx = w >> (32 - k)
-        cnt = lut_count[idx].to(torch.int64)
-        nb = lut_bits[idx].to(torch.int64)
-        ids = lut_ids[:, idx].T  # [C, S], a fresh tensor
+        e = lut[idx]
+        cnt = e & 0xFF
+        nb = (e >> 8) & 0xFF
+        ids = ((e[:, None] >> shifts) & ((1 << B) - 1)).to(torch.int32)  # [C, S]
         esc = cnt == 0
         if bool(esc.any()):
             # escape: binary search over the XOR-mapped codewords, with the

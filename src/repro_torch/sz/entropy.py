@@ -48,6 +48,7 @@ import torch
 from repro_torch import obs
 from repro_torch.errors import CorruptContainerError
 from repro_torch.kernels import ops
+from repro_torch.kernels.huffman_decode import lut_layout
 from repro_torch.kernels.huffman_encode import MAX_CHUNK
 from repro_torch.sz.artifact import ENTROPY_MAGIC
 
@@ -167,36 +168,23 @@ def _splice_chunks(local: np.ndarray, chunk_bits: np.ndarray) -> tuple[bytes, in
     return stream[: (total + 7) // 8], total
 
 
-class _Tables(NamedTuple):
-    """Canonical decode tables (per codec, built lazily)."""
+class _DecodeTables(NamedTuple):
+    """A codec's decode tables on one device: what the chunked decode and the
+    legacy boundary pass read, and the ids' symbol values."""
 
-    max_len: int
-    k: int  # single-symbol LUT width in bits
-    first_code: np.ndarray  # per-length canonical decode bases (bit walk)
-    first_idx: np.ndarray
-    count_at: np.ndarray
-    order: np.ndarray  # symbol ids in canonical order
-    lut: np.ndarray  # single-symbol LUT: (sym+1)<<8 | len, 0 = escape
-    cw_left: np.ndarray  # left-aligned canonical codewords (monotone)
-    L_sorted: np.ndarray  # code lengths in canonical order
+    lut: torch.Tensor  # int64 [2**k]: packed entries (huffman_decode.lut_layout)
+    cw_map: torch.Tensor  # int32 [n]: top 32 bits of the left-aligned codewords
+    order: torch.Tensor  # int32 [n]: symbol ids in canonical order
+    len_sorted: torch.Tensor  # int32 [n]: code lengths in canonical order
+    alphabet: torch.Tensor  # int32 [n]: symbol value of each id
+    k: int  # LUT width in bits
 
 
-class _MultiTables(NamedTuple):
-    tables: _Tables
-    mlut: np.ndarray  # multi-symbol probe LUT (see _multi_lut)
-    B: int  # bits per symbol id slot
-    S: int  # id slots per probe entry
-
-
-def _id_shift0(B: int) -> int:
-    """Bit offset of the first symbol id in a packed probe entry."""
-    return 32 if B == 32 else 16
-
-
-def _multi_lut(lut1: np.ndarray, k: int, B: int, S: int) -> np.ndarray:
+def _multi_lut(lut1: np.ndarray, k: int, B: int, S: int, id_base: int) -> np.ndarray:
     """Multi-symbol LUT: entry packs count (byte 0), consumed bits (byte 1)
-    and up to S symbol ids (B-bit slots from ``_id_shift0``), greedily
-    covering every complete code in the k-bit window; 0 = escape."""
+    and up to S symbol ids (B-bit slots from ``id_base``), greedily
+    covering every complete code in the k-bit window; 0 = escape.  ``lut1``
+    is the single-symbol LUT: (id + 1) << 8 | length, 0 = escape."""
     size = 1 << k
     W = np.arange(size, dtype=np.uint64)
     kmask = np.uint64(size - 1)
@@ -204,7 +192,6 @@ def _multi_lut(lut1: np.ndarray, k: int, B: int, S: int) -> np.ndarray:
     count = np.zeros(size, np.uint64)
     acc = np.zeros(size, np.uint64)
     active = np.ones(size, bool)
-    base = _id_shift0(B)
     for j in range(S):
         sub = (W << consumed) & kmask
         e1 = lut1[sub]
@@ -213,11 +200,33 @@ def _multi_lut(lut1: np.ndarray, k: int, B: int, S: int) -> np.ndarray:
         if not ok.any():
             break
         sym = (e1[ok] >> np.uint64(8)) - np.uint64(1)
-        acc[ok] |= sym << np.uint64(base + j * B)
+        acc[ok] |= sym << np.uint64(id_base + j * B)
         consumed[ok] += ln[ok]
         count[ok] += np.uint64(1)
         active = ok
     return acc | (consumed << np.uint64(8)) | count
+
+
+def _decode_tables(codec: "HuffmanCodec", device: torch.device) -> _DecodeTables:
+    """Build ``codec``'s decode tables from its code lengths and canonical
+    codes, and upload them to ``device``."""
+    codec._check_lengths()
+    n = len(codec.lengths)
+    k = min(int(codec.lengths.max()), _LUT_BITS)
+    order = np.lexsort((np.arange(n), codec.lengths))
+    L_sorted = codec.lengths[order].astype(np.int64)
+    lut1 = np.zeros(1 << k, np.uint64)
+    short = L_sorted <= k  # a prefix of the canonical order, in window order
+    widths = np.left_shift(1, k - L_sorted[short])
+    packed = ((order[short] + 1) << 8) | L_sorted[short]
+    lut1[: int(widths.sum())] = np.repeat(packed, widths).astype(np.uint64)
+    # codes are at most 32 bits, so the top 32 bits of a window keep every
+    # interval boundary; the XOR maps unsigned order onto int32 order
+    cw32 = (codec.codes[order] << (32 - L_sorted).astype(np.uint64)).astype(np.uint32)
+    host = (_multi_lut(lut1, k, *lut_layout(n)).view(np.int64),
+            (cw32 ^ np.uint32(0x80000000)).view(np.int32), order.astype(np.int32),
+            L_sorted.astype(np.int32), codec.alphabet.astype(np.int32))
+    return _DecodeTables(*(torch.from_numpy(a).to(device) for a in host), k)
 
 
 def _stream_words(stream: bytes, w0: int, w1: int | None, device) -> torch.Tensor:
@@ -326,95 +335,15 @@ class HuffmanCodec:
         return stream, bits, total
 
     # -- decode tables ----------------------------------------------------------
-    def _decode_tables(self) -> _Tables:
-        cached = getattr(self, "_tables", None)
-        if cached is not None:
-            return cached
-        n = len(self.lengths)
-        max_len = int(self.lengths.max()) if n else 0
-        k = min(max_len, _LUT_BITS)
-        order = np.lexsort((np.arange(n), self.lengths))
-        count_at = np.bincount(self.lengths.astype(np.int64), minlength=max_len + 2)
-        first_code = np.zeros(max_len + 2, np.int64)
-        first_idx = np.zeros(max_len + 2, np.int64)
-        code = idx = 0
-        for L in range(1, max_len + 1):
-            first_code[L] = code
-            first_idx[L] = idx
-            code = (code + count_at[L]) << 1
-            idx += count_at[L]
-        lut = np.zeros(1 << k, np.uint64)
-        L_sorted = self.lengths[order].astype(np.int64)
-        if n:
-            short = L_sorted <= k  # prefix of the canonical order
-            widths = np.left_shift(1, k - L_sorted[short])
-            packed = ((order[short] + 1) << 8) | L_sorted[short]
-            lut[: int(widths.sum())] = np.repeat(packed, widths).astype(np.uint64)
-        cw_left = self.codes[order] << (64 - L_sorted).astype(np.uint64)
-        tables = _Tables(max_len, k, first_code, first_idx, count_at, order,
-                         lut, cw_left, L_sorted)
-        self._tables = tables
-        return tables
-
-    def _multi_tables(self) -> _MultiTables:
-        cached = getattr(self, "_mtables", None)
-        if cached is not None:
-            return cached
-        tables = self._decode_tables()
-        n = len(self.alphabet)
-        B = 8 if n <= 256 else (16 if n <= 65536 else 32)
-        S = (64 - _id_shift0(B)) // B  # 6 / 3 / 1 ids per probe entry
-        mtables = _MultiTables(tables, _multi_lut(tables.lut, tables.k, B, S), B, S)
-        self._mtables = mtables
-        return mtables
-
-    def _device_tables(self):
-        """The multi-symbol LUT split into int32 arrays for the decode
-        kernel.  Cached."""
-        cached = getattr(self, "_dev_tables", None)
-        if cached is not None:
-            return cached
-        self._check_lengths()
-        mt = self._multi_tables()
-        t = mt.tables
-        base = _id_shift0(mt.B)
-        mask = np.uint64((1 << mt.B) - 1)
-        lut_ids = np.stack([
-            ((mt.mlut >> np.uint64(base + j * mt.B)) & mask).astype(np.int32)
-            for j in range(mt.S)])
-        # codes fill the top <= 32 bits, so the top-32 truncation keeps every
-        # interval boundary; the XOR maps unsigned order onto int32 order
-        cw32 = (t.cw_left >> np.uint64(32)).astype(np.uint32)
-        dev = {
-            "lut_count": (mt.mlut & np.uint64(0xFF)).astype(np.int32),
-            "lut_bits": ((mt.mlut >> np.uint64(8)) & np.uint64(0xFF)).astype(np.int32),
-            "lut_ids": lut_ids,
-            "cw_map": (cw32 ^ np.uint32(0x80000000)).view(np.int32),
-            "order": t.order.astype(np.int32),
-            "len_sorted": t.L_sorted.astype(np.int32),
-            "k": t.k,
-        }
-        self._dev_tables = dev
-        return dev
-
-    def _tables_on(self, device: torch.device) -> dict:
-        """``_device_tables`` plus the alphabet and the packed multi-symbol
-        LUT (``lut``: ``_multi_lut``'s uint64 bits as int64, which the CUDA
-        decode reads) as tensors on ``device`` (cached per device; building
-        twice under a race is harmless)."""
-        per_dev = self.__dict__.setdefault("_dev_tensors", {})
+    def _tables_on(self, device) -> _DecodeTables:
+        """The decode tables on ``device``, built there on first use (cached
+        per device; building twice under a race is harmless)."""
+        per_dev = self.__dict__.setdefault("_tables", {})
         key = str(device)
-        got = per_dev.get(key)
-        if got is None:
-            host = dict(self._device_tables())
-            k = host.pop("k")
-            host["alphabet"] = self.alphabet.astype(np.int32)
-            host["lut"] = self._multi_tables().mlut.view(np.int64)
-            got = {name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                   for name, a in host.items()}
-            got["k"] = k
-            per_dev[key] = got
-        return got
+        tabs = per_dev.get(key)
+        if tabs is None:
+            tabs = per_dev[key] = _decode_tables(self, torch.device(device))
+        return tabs
 
     # -- decode -------------------------------------------------------------------
     @obs.spanned("lane.decode")
@@ -455,18 +384,17 @@ class HuffmanCodec:
         """Run the chunked decode kernel on its inputs and map the first
         ``n_out`` ids (only the last chunk can be short, so the row-major
         flatten is the symbol stream) to alphabet values."""
-        tabs = self._tables_on(device)
-        ids = ops.huffman_decode_op(*args, **kw, lut=tabs["lut"])
-        return tabs["alphabet"][ids.reshape(-1)[:n_out]]
+        ids = ops.huffman_decode_op(*args, **kw)
+        return self._tables_on(device).alphabet[ids.reshape(-1)[:n_out]]
 
     def _decode_inputs(self, stream: bytes, n_symbols: int, chunk_size: int,
                        offsets, device: torch.device, *, chunk_range=None,
                        word_range=None):
         """The decode kernel's arguments on ``device``: (words, offsets,
-        counts, six tables) and (chunk_size, k).  ``offsets`` are every
-        chunk's start bit; ``chunk_range`` keeps chunks c0 .. c1-1 and
-        ``word_range`` uploads only stream words w0 .. w1-1, the offsets
-        shifted to match."""
+        counts, lut, cw_map, order, len_sorted) and (chunk_size, k).
+        ``offsets`` are every chunk's start bit; ``chunk_range`` keeps chunks
+        c0 .. c1-1 and ``word_range`` uploads only stream words w0 .. w1-1,
+        the offsets shifted to match."""
         tabs = self._tables_on(device)
         C = offsets.shape[0]
         c0, c1 = (0, C) if chunk_range is None else chunk_range
@@ -475,10 +403,9 @@ class HuffmanCodec:
         w0, w1 = (0, None) if word_range is None else word_range
         words = _stream_words(stream, w0, w1, device)
         offs = torch.from_numpy(np.asarray(offsets[c0:c1], np.int64) - 32 * w0).to(device)
-        args = (words, offs, torch.from_numpy(counts[c0:c1]).to(device), tabs["lut_count"],
-                tabs["lut_bits"], tabs["lut_ids"], tabs["cw_map"], tabs["order"],
-                tabs["len_sorted"])
-        return args, {"chunk_size": chunk_size, "k": tabs["k"]}
+        args = (words, offs, torch.from_numpy(counts[c0:c1]).to(device), tabs.lut,
+                tabs.cw_map, tabs.order, tabs.len_sorted)
+        return args, {"chunk_size": chunk_size, "k": tabs.k}
 
     def decode_bitwalk(self, blob, n_symbols: int, *, device) -> torch.Tensor:
         """Decode a legacy stream (``hf``/``hz``: a <Q bit count, then the
@@ -499,7 +426,7 @@ class HuffmanCodec:
         tabs = self._tables_on(device)
         words = _stream_words(stream, 0, None, device)
         cs = DEFAULT_CHUNK
-        bounds = ops.huffman_legacy_bounds_op(words, tabs["cw_map"], tabs["len_sorted"],
+        bounds = ops.huffman_legacy_bounds_op(words, tabs.cw_map, tabs.len_sorted,
                                               n_symbols=n_symbols, chunk_size=cs)
         end = int(bounds[-1])
         if end != total:
@@ -508,11 +435,9 @@ class HuffmanCodec:
         C = bounds.shape[0] - 1
         counts = np.full(C, cs, np.int32)
         counts[-1] = n_symbols - cs * (C - 1)
-        args = (words, bounds[:C], torch.from_numpy(counts).to(device), tabs["lut_count"],
-                tabs["lut_bits"], tabs["lut_ids"], tabs["cw_map"], tabs["order"],
-                tabs["len_sorted"])
-        return self._ids_to_symbols(args, {"chunk_size": cs, "k": tabs["k"]}, n_symbols,
-                                    device)
+        args = (words, bounds[:C], torch.from_numpy(counts).to(device), tabs.lut,
+                tabs.cw_map, tabs.order, tabs.len_sorted)
+        return self._ids_to_symbols(args, {"chunk_size": cs, "k": tabs.k}, n_symbols, device)
 
     # -- serialization --------------------------------------------------------------
     def table_bytes(self) -> bytes:
@@ -800,8 +725,8 @@ _CODEC_LOCK = threading.Lock()
 
 def _cached_codec(table: bytes, device=None) -> HuffmanCodec:
     """Decode-side codec cache: repeated decodes of one artifact skip the
-    canonical-table, LUT and device-table rebuilds.  A miss with a
-    ``device`` builds the decode tables there at once (span ``lane.tables``,
+    canonical table and the decode tables.  A miss with a ``device`` builds
+    the decode tables and uploads them there at once (span ``lane.tables``,
     attribute ``hit``)."""
     with obs.span("lane.tables") as sp:
         with _CODEC_LOCK:

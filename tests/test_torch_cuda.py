@@ -306,7 +306,7 @@ def test_huffman_decode_edges_match_plain_version(cuda, case):
         args[0] = args[0][: args[0].numel() // 3].clone()
         args[0][-2:] = 0
     ops.reset_launches()
-    got = ops.huffman_decode_op(*args, **kw, lut=codec._tables_on(cuda)["lut"])
+    got = ops.huffman_decode_op(*args, **kw)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["huffman_decode"] == 1
     assert torch.equal(got, ref.huffman_decode_ref(*args, **kw))
@@ -368,11 +368,10 @@ def test_huffman_decode_offsets_past_2_31_and_2_32_bits(cuda):
         words[at : at + used + 1] |= piece
     tabs = codec._tables_on(cuda)
     counts = torch.full((offsets.size,), cs, dtype=torch.int32, device=cuda)
-    args = [words, torch.from_numpy(offsets).to(cuda), counts, tabs["lut_count"],
-            tabs["lut_bits"], tabs["lut_ids"], tabs["cw_map"], tabs["order"],
-            tabs["len_sorted"]]
-    got = ops.huffman_decode_op(*args, chunk_size=cs, k=tabs["k"])
-    assert torch.equal(got, ref.huffman_decode_ref(*args, chunk_size=cs, k=tabs["k"]))
+    args = [words, torch.from_numpy(offsets).to(cuda), counts, tabs.lut, tabs.cw_map,
+            tabs.order, tabs.len_sorted]
+    got = ops.huffman_decode_op(*args, chunk_size=cs, k=tabs.k)
+    assert torch.equal(got, ref.huffman_decode_ref(*args, chunk_size=cs, k=tabs.k))
     np.testing.assert_array_equal(codec.alphabet[got.cpu().numpy()], sym.reshape(8, cs))
 
 
@@ -607,7 +606,7 @@ def test_huffman_legacy_bounds_kernel_matches_plain_version(cuda, case):
     tabs = codec._tables_on(cuda)
     words = entropy._stream_words(body[8:], 0, None, cuda)
     kw = dict(n_symbols=codes.size, chunk_size=entropy.DEFAULT_CHUNK)
-    args = (words, tabs["cw_map"], tabs["len_sorted"])
+    args = (words, tabs.cw_map, tabs.len_sorted)
     ops.reset_launches()
     got = ops.huffman_legacy_bounds_op(*args, **kw)
     assert ops.LAUNCHES["huffman_legacy"] == 1

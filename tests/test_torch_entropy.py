@@ -211,15 +211,30 @@ def test_huffman_decode_plain_matches_reference(case):
     args, kw = codec._decode_inputs(stream, n, cs, np.cumsum(cb) - cb, torch.device("cpu"))
     # the decode takes int64 bit offsets (entropy's own) and int32 ones (the
     # reference's); the plain version and the op give the reference's ids
-    # for both
+    # for both.  The reference's op takes the LUT split into int32 tables.
     args32 = (args[0], args[1].to(torch.int32), *args[2:])
-    want = rops.huffman_decode_op(*(jnp.asarray(a.numpy()) for a in args32), **kw,
+    split = _split_lut(args[3].numpy(), args[5].shape[0])
+    jargs = (*args32[:3], *split, *args32[4:])
+    want = rops.huffman_decode_op(*(jnp.asarray(np.asarray(a)) for a in jargs), **kw,
                                   use_pallas=case == "pallas", interpret=True)
     for a in (args, args32):
         got = ref.huffman_decode_ref(*a, **kw).numpy()
         np.testing.assert_array_equal(got, np.asarray(want))
         np.testing.assert_array_equal(ops.huffman_decode_op(*a, **kw).numpy(), got)
     np.testing.assert_array_equal(codec.alphabet[got.reshape(-1)[:n]], codes)
+
+
+def _split_lut(lut: np.ndarray, n_symbols: int):
+    """The packed LUT read with the decode's shifts, as the reference's split
+    int32 tables: (count, consumed bits, ids [S, 2**k])."""
+    from repro_torch.kernels.huffman_decode import lut_layout
+
+    B, S, id_base = lut_layout(n_symbols)
+    e = lut.view(np.uint64)
+    mask = np.uint64((1 << B) - 1)
+    ids = np.stack([(e >> np.uint64(id_base + j * B)) & mask for j in range(S)])
+    return ((e & np.uint64(0xFF)).astype(np.int32),
+            ((e >> np.uint64(8)) & np.uint64(0xFF)).astype(np.int32), ids.astype(np.int32))
 
 
 def _host_pack(rcodec, sym: np.ndarray, cs: int):
@@ -285,30 +300,34 @@ def test_decode_inputs_hand_the_kernel_int64_offsets():
     args, kw = codec._decode_inputs(b"\x00" * 64, 4 * cs, cs, offsets, torch.device("cpu"))
     assert args[1].dtype == torch.int64 and args[1].tolist() == offsets.tolist()
     assert args[2].dtype == torch.int32
-    assert kw == {"chunk_size": cs, "k": codec._device_tables()["k"]}
+    tabs = codec._tables_on(torch.device("cpu"))
+    assert all(a is b for a, b in zip(args[3:], tabs[:4]))
+    assert kw == {"chunk_size": cs, "k": tabs.k}
 
 
 @pytest.mark.parametrize("span", [40, 1000, 100000])
-def test_packed_lut_is_the_host_multi_lut(span):
-    """The kernel's packed LUT, rebuilt from the split int32 tables the op
-    takes, is bit for bit the host's multi-symbol LUT (6 x 8-bit, 3 x 16-bit
-    and 1 x 32-bit id slots), which the codec hands to the decode as
-    ``lut``."""
-    from repro_torch.kernels import huffman_decode
-
-    codes = np.random.default_rng(span).integers(-span, span, 50000).astype(np.int32)
+def test_decode_tables_are_the_references(span):
+    """One table value a codec and device: the packed LUT, read with the
+    decode's shifts, and the escape tables equal the reference codec's own
+    device tables for the same codes (6 x 8-bit, 3 x 16-bit and 1 x 32-bit
+    id slots), and the device copy holds exactly the packed LUT, ``cw_map``,
+    ``order``, ``len_sorted`` and the alphabet."""
+    codes = np.random.default_rng(span).integers(-span, span, max(50000, 2 * span))
+    codes = codes.astype(np.int32)
     codec = P.HuffmanCodec.fit(_t(codes))
-    t = codec._device_tables()
-    packed, B, base = huffman_decode.pack_lut(t["lut_count"], t["lut_bits"], t["lut_ids"])
-    np.testing.assert_array_equal(packed, codec._multi_tables().mlut)
-    lut = codec._tables_on(torch.device("cpu"))["lut"]
-    assert lut.dtype == torch.int64
-    np.testing.assert_array_equal(lut.numpy().view(np.uint64), packed)
-    assert B == codec._multi_tables().B and t["lut_ids"].shape[0] * B + base <= 64
-    bad = t["lut_ids"].copy()
-    bad[0, 0] = 1 << B
-    with pytest.raises(ValueError, match="packed layout"):
-        huffman_decode.pack_lut(t["lut_count"], t["lut_bits"], bad)
+    want = R.HuffmanCodec.fit(codes, use_accel=False)._device_tables()
+    tabs = codec._tables_on(torch.device("cpu"))
+    assert tabs._fields == ("lut", "cw_map", "order", "len_sorted", "alphabet", "k")
+    assert [t.dtype for t in tabs[:5]] == [torch.int64] + [torch.int32] * 4
+    assert tabs.k == want["k"] and tabs.lut.shape == (1 << tabs.k,)
+    split = _split_lut(tabs.lut.numpy(), codec.alphabet.size)
+    assert split[2].shape[0] == {40: 6, 1000: 3, 100000: 1}[span]
+    for name, got in zip(("lut_count", "lut_bits", "lut_ids"), split):
+        np.testing.assert_array_equal(got, want[name], err_msg=name)
+    for name in ("cw_map", "order", "len_sorted"):
+        np.testing.assert_array_equal(getattr(tabs, name).numpy(), want[name], err_msg=name)
+    np.testing.assert_array_equal(tabs.alphabet.numpy(), codec.alphabet)
+    assert codec._tables_on("cpu") is tabs
 
 
 INT32_MIN = np.array([-(2**31), 5, -7], np.int32)
@@ -406,7 +425,7 @@ def test_legacy_bounds_plain_version_against_bitwalk(n):
     tabs = codec._tables_on(torch.device("cpu"))
     words = P._stream_words(stream[8:], 0, None, "cpu")
     cs = P.DEFAULT_CHUNK
-    got = ops.huffman_legacy_bounds_op(words, tabs["cw_map"], tabs["len_sorted"],
+    got = ops.huffman_legacy_bounds_op(words, tabs.cw_map, tabs.len_sorted,
                                        n_symbols=n, chunk_size=cs).numpy()
     want = np.concatenate([[0], ends[cs - 1 : n - 1 : cs], [total]])
     np.testing.assert_array_equal(got, want)
